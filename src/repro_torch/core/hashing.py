@@ -1,0 +1,28 @@
+"""p-stable LSH projections (paper §II-B, Eq. 1).
+
+h(o) = a . o with a ~ N(0, I_d).  DET-LSH uses K*L such functions, giving L
+independent K-dimensional projected spaces:  H_i(o) in R^K, i = 1..L.
+
+The projection is one tall-skinny float32 matrix product, left to
+``torch.matmul`` as the reference leaves it to XLA's dot.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sample_projections(generator: torch.Generator, d: int, K: int, L: int,
+                       device: torch.device | str) -> torch.Tensor:
+    """Sample the (d, L*K) projection matrix A with i.i.d. N(0,1) entries.
+
+    The draw happens on the generator's own device, so a CPU generator
+    gives the same A whatever ``device`` the matrix is moved to."""
+    a = torch.randn((d, L * K), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return a.to(device)
+
+
+def project(data: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Project ``data`` (n, d) or queries (..., d) -> (..., L*K) in f32."""
+    return torch.matmul(data, A)

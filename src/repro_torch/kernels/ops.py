@@ -1,0 +1,65 @@
+"""Device dispatch for the port's kernels.
+
+A CPU tensor goes to the plain version in ``kernels/ref.py``; a CUDA tensor
+goes to the hand-written kernel, whose wrapper launches it or raises.
+There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build_fused as _bf
+from repro_torch.kernels import range_rerank as _rr
+from repro_torch.kernels import ref as _ref
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}: the port runs on "
+                     f"cuda, or on cpu through the plain versions")
+
+
+def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
+                L: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Fused encode + interleaved key-pack (build; see
+    kernels/build_fused.py).  proj (n, L*K) -> (proj_t, codes_t, key_hi,
+    key_lo) in the per-tree layouts."""
+    if _on_cuda(proj):
+        return _bf.encode_pack(proj, breakpoints, K=K, L=L)
+    return _ref.encode_pack(proj, breakpoints, K=K, L=L)
+
+
+def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
+                 leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
+                 leaf_valid: torch.Tensor, breakpoints: torch.Tensor,
+                 points: torch.Tensor, point_valid: torch.Tensor,
+                 live: Optional[torch.Tensor] = None, *, leaf_size: int,
+                 probe_depth: int = 0) -> torch.Tensor:
+    """Fused batched range query + rerank; see kernels/range_rerank.py.
+
+    ``r_eff`` is (B,) per-lane radii shared across trees, or (L, B)
+    per-tree radii.  With ``probe_depth > 0`` and 1-D radii they are first
+    widened via :func:`repro_torch.kernels.ref.probe_radii` so the
+    probe_depth best near-miss leaves per (tree, lane) are admitted too.
+    ``live`` None means every point is live.  Returns (L, B, nl*leaf_size).
+    """
+    if live is None:
+        live = point_valid           # pv & pv == pv: no ones tensor needed
+    if probe_depth and r_eff.ndim == 1:
+        r_eff = _ref.probe_radii(q_proj, leaf_lo, leaf_hi, leaf_valid,
+                                 breakpoints, r_eff, probe_depth)
+    if not _on_cuda(q):
+        return _ref.range_rerank(q, q_proj, r_eff, leaf_lo, leaf_hi,
+                                 leaf_valid, breakpoints, points, point_valid,
+                                 live, leaf_size=leaf_size)
+    L, B, _ = q_proj.shape
+    return _rr.range_rerank(q, q_proj, r_eff.expand(L, B), leaf_lo, leaf_hi,
+                            leaf_valid, breakpoints, points, point_valid,
+                            live, leaf_size=leaf_size)

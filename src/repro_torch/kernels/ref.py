@@ -1,0 +1,168 @@
+"""Plain PyTorch versions of the port's kernels: the semantics of record.
+
+``kernels/ops.py`` sends a CPU tensor here; the CPU tests hold them against
+the reference package, and ``chip_smoke.py`` holds each CUDA kernel
+against its plain version on the card.
+
+Leaf lower bounds accumulate the K clamped gaps in the order k = 0..K-1,
+one rounded product and one rounded sum per step, exactly as the CUDA
+``range_rerank`` kernel does (``__fadd_rn(acc, __fmul_rn(t, t))``), so the
+kernel and this version agree bit for bit on every LB and therefore on
+which leaves are admitted.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_INF = float("inf")
+
+
+def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
+                L: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Fused build step: encode + interleaved key-pack.
+
+    proj (n, L*K) f32, breakpoints (L*K, Nr+1) -> (proj_t (L, n, K) f32,
+    codes_t (L, n, K) int32, key_hi (L, n), key_lo (L, n)): each key word is
+    a uint32 value held in int64.  Codes are #(inner edges <= x), clipped
+    to [0, Nr-1]; key words are ``core.detree.interleave_keys`` per tree.
+    """
+    from repro_torch.core.detree import interleave_keys
+    from repro_torch.core.encoding import encode
+    n = proj.shape[0]
+    codes = encode(proj, breakpoints)                          # (n, L*K)
+    proj_t = proj.reshape(n, L, K).permute(1, 0, 2).contiguous()
+    codes_t = codes.reshape(n, L, K).permute(1, 0, 2).contiguous()
+    key_hi, key_lo = interleave_keys(codes_t, K)
+    return proj_t, codes_t, key_hi, key_lo
+
+
+def _edge_coords(breakpoints: torch.Tensor, leaf_lo: torch.Tensor,
+                 leaf_hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., K, E) breakpoints, (..., nl, K) bounds -> the leaf boxes'
+    lower and upper edge coordinates, each (..., nl, K).  Bounds widen to
+    int64 before the +1 (int16 storage would wrap at 32767)."""
+    E = breakpoints.shape[-1]
+    bp_t = breakpoints.transpose(-1, -2)                       # (..., E, K)
+    lo = torch.clamp(leaf_lo.to(torch.int64), 0, E - 1)
+    hi = torch.clamp(leaf_hi.to(torch.int64) + 1, 0, E - 1)
+    return torch.gather(bp_t, -2, lo), torch.gather(bp_t, -2, hi)
+
+
+def forest_leaf_lb(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
+                   leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
+                   breakpoints: torch.Tensor) -> torch.Tensor:
+    """Leaf LB distances for the whole forest at once.
+
+    q_proj (L, B, K); leaf_lo/hi (L, nl, K); leaf_valid (L, nl);
+    breakpoints (L, K, E) -> (L, B, nl) f32, +inf for invalid leaves.
+    """
+    b_lo, b_hi = _edge_coords(breakpoints, leaf_lo, leaf_hi)   # (L, nl, K)
+    L, B, K = q_proj.shape
+    acc = torch.zeros((L, B, b_lo.shape[1]), dtype=torch.float32,
+                      device=q_proj.device)
+    for k in range(K):                         # fixed order, no contraction
+        q = q_proj[:, :, None, k]
+        t = torch.clamp_min(torch.maximum(b_lo[:, None, :, k] - q,
+                                          q - b_hi[:, None, :, k]), 0.0)
+        acc = acc + t * t
+    lb = torch.sqrt(acc)
+    return torch.where(leaf_valid.to(torch.bool)[:, None, :], lb, _INF)
+
+
+def leaf_bounds(q: torch.Tensor, leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
+                leaf_valid: torch.Tensor,
+                breakpoints: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Fig. 5 LB/UB.  q (K,), leaf_lo/hi (nl, K), bp (K, Nr+1) -> (nl,) each."""
+    lb = forest_leaf_lb(q[None, None, :], leaf_lo[None], leaf_hi[None],
+                        leaf_valid[None], breakpoints[None])[0, 0]
+    b_lo, b_hi = _edge_coords(breakpoints, leaf_lo, leaf_hi)
+    ub_dim = torch.maximum((q[None, :] - b_lo).abs(), (q[None, :] - b_hi).abs())
+    ub = torch.sqrt((ub_dim * ub_dim).sum(-1))
+    return lb, torch.where(leaf_valid.to(torch.bool), ub, _INF)
+
+
+def probe_radii_from_lb(lb: torch.Tensor, r_eff: torch.Tensor,
+                        probe_depth: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probe-widened admission radii from a leaf-LB table.
+
+    lb (L, B, nl) leaf LBs (+inf for invalid leaves); r_eff (B,) radius per
+    lane (-1 = done).  Per (tree, lane), widen the radius to also admit the
+    ``probe_depth`` valid leaves with the smallest LB above r_eff.  Done
+    lanes keep r_eff = -1 and never probe.  Returns (r_adm (L, B),
+    probe_mask (L, B, nl)).
+    """
+    nl = lb.shape[2]
+    r = r_eff[None, :]
+    outside = lb > r[..., None]                      # invalid leaves too
+    slack = torch.where(outside & torch.isfinite(lb), lb, _INF)
+    depth = min(int(probe_depth), nl)
+    kth = torch.topk(slack, depth, dim=-1, largest=False).values[..., -1]
+    # The depth-th probe leaf sits exactly on the widened radius, and a
+    # kernel that recomputes leaf LBs in another order could lose it to a
+    # 1-ulp difference: one relative-epsilon nudge keeps it in (a superset,
+    # so the quality guarantees are untouched).
+    kth = torch.where(torch.isfinite(kth), kth * (1 + 1e-5) + 1e-6, kth)
+    r_adm = torch.maximum(r, kth)
+    r_adm = torch.where(r < 0, r, r_adm)
+    probe_mask = outside & torch.isfinite(lb) & (lb <= r_adm[..., None])
+    return r_adm, probe_mask
+
+
+def probe_radii(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
+                leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
+                breakpoints: torch.Tensor, r_eff: torch.Tensor,
+                probe_depth: int) -> torch.Tensor:
+    """Leaf-LB table -> probe-widened (L, B) radii."""
+    lb = forest_leaf_lb(q_proj, leaf_lo, leaf_hi, leaf_valid, breakpoints)
+    return probe_radii_from_lb(lb, r_eff, probe_depth)[0]
+
+
+def l2_rerank(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Exact Euclidean distances: q (b, d), c (m, d) -> (b, m)."""
+    qq = (q * q).sum(-1, keepdim=True)
+    cc = (c * c).sum(-1)[None, :]
+    qc = torch.matmul(q, c.T)
+    return torch.sqrt(torch.clamp_min(qq - 2.0 * qc + cc, 0.0))
+
+
+def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
+                 leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
+                 leaf_valid: torch.Tensor, breakpoints: torch.Tensor,
+                 points: torch.Tensor, point_valid: torch.Tensor,
+                 live: Optional[torch.Tensor] = None, *,
+                 leaf_size: int, probe_depth: int = 0) -> torch.Tensor:
+    """Fused batched range query + exact rerank.
+
+    q (B, d); q_proj (L, B, K); r_eff projected admission radii, (B,)
+    shared across trees or (L, B) per tree (-1 = inactive lane); leaf_lo/hi
+    (L, nl, K); leaf_valid (L, nl); breakpoints (L, K, E); points
+    (L, nl*leaf_size, d) code-sorted points; point_valid (L, nl*leaf_size);
+    live (L, nl*leaf_size) tombstone mask in sorted order (None = all live).
+
+    With probe_depth > 0 and 1-D r_eff the radii are first widened per
+    (tree, lane) via :func:`probe_radii`.
+
+    Returns (L, B, nl*leaf_size) f32: the exact distance for every valid,
+    live point whose leaf has LB <= r_eff, +inf elsewhere.
+    """
+    L, B, _ = q_proj.shape
+    if probe_depth and r_eff.ndim == 1:
+        r_eff = probe_radii(q_proj, leaf_lo, leaf_hi, leaf_valid,
+                            breakpoints, r_eff, probe_depth)
+    r2 = r_eff.expand(L, B)
+    lb = forest_leaf_lb(q_proj, leaf_lo, leaf_hi, leaf_valid, breakpoints)
+    admit = (lb <= r2[..., None]) & leaf_valid.to(torch.bool)[:, None, :]
+    keep = point_valid.to(torch.bool)
+    if live is not None:
+        keep = keep & live.to(torch.bool)
+    out = torch.empty((L, B, points.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    for l in range(L):
+        mask = admit[l].repeat_interleave(leaf_size, dim=1) & keep[l][None, :]
+        out[l] = torch.where(mask, l2_rerank(q, points[l]), _INF)
+    return out

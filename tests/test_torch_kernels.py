@@ -1,0 +1,173 @@
+"""PyTorch port: the kernels' plain versions against the reference package.
+
+On the CPU the port's ``kernels/ops.py`` runs each kernel's plain PyTorch
+version; here it is held against the reference's Pallas kernel (interpret
+mode) and its jnp oracle on the same numpy inputs.  The CUDA kernels
+themselves are held against the plain versions in tests/test_torch_cuda.py
+(and by ``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import encoding as jenc  # noqa: E402
+from repro.core.detree import build_forest as jax_build_forest  # noqa: E402
+from repro.core.query import make_fused_plan as jax_plan  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+
+def _proj_bp(n, K, L, Nr, seed):
+    rng = np.random.default_rng(seed)
+    proj = (rng.standard_normal((n, L * K)) * 2.0).astype(np.float32)
+    bp = np.asarray(jenc.select_breakpoints(jnp.asarray(proj), Nr,
+                                            method="full_sort"))
+    return proj, bp
+
+
+# ---------------------------------------------------------------------------
+# (a) encode_pack: bit-identical to the Pallas kernel and the jnp oracle
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,K,L,Nr", [(300, 4, 3, 64), (257, 5, 2, 64),
+                                      (600, 16, 2, 256)])
+def test_encode_pack_bit_identical_to_reference(n, K, L, Nr):
+    proj, bp = _proj_bp(n, K, L, Nr, seed=K)
+    got = tops.encode_pack(torch.tensor(proj), torch.tensor(bp), K=K, L=L)
+    kernel = jops.encode_pack(jnp.asarray(proj), jnp.asarray(bp), K=K, L=L,
+                              interpret=True, block_n=128)
+    oracle = jref.encode_pack(jnp.asarray(proj), jnp.asarray(bp), K=K, L=L)
+    for want in (kernel, oracle):
+        for name, g, w in zip(("proj_t", "codes_t", "key_hi", "key_lo"),
+                              got, want):
+            w = np.asarray(w)
+            if w.dtype == np.uint32:      # port words: uint32 values in int64
+                assert g.dtype == torch.int64, name
+                w = w.astype(np.int64)
+            else:
+                assert g.numpy().dtype == w.dtype, name
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    if K == 16:                           # the sign-bit half of the hi word
+        assert int(got[2].max()) >= 2 ** 31
+    if K <= 4:
+        assert not bool(got[3].any())     # the key fits the hi word
+
+
+# ---------------------------------------------------------------------------
+# (b) range_rerank: same +inf mask, close finite distances
+# ---------------------------------------------------------------------------
+
+def _rerank_inputs(B, n, K, L, ls, d, seed):
+    """A reference-built forest + fused plan and a query batch, as numpy."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    A = rng.standard_normal((d, L * K)).astype(np.float32)
+    q = (data[rng.choice(n, B, replace=False)]
+         + 0.3 * rng.standard_normal((B, d))).astype(np.float32)
+    proj = data @ A
+    forest = jax_build_forest(jnp.asarray(proj), K, L, Nr=64, leaf_size=ls,
+                              breakpoint_method="full_sort")
+    plan = jax_plan(jnp.asarray(data), forest)
+    q_proj = (q @ A).reshape(B, L, K).transpose(1, 0, 2).copy()
+    live = rng.random((L, forest.point_ids.shape[1])) > 0.2
+    arrays = dict(q=q, q_proj=q_proj,
+                  leaf_lo=np.asarray(forest.leaf_lo),
+                  leaf_hi=np.asarray(forest.leaf_hi),
+                  leaf_valid=np.asarray(forest.leaf_valid),
+                  breakpoints=np.asarray(forest.breakpoints),
+                  points=np.asarray(plan.points_sorted),
+                  point_valid=np.asarray(forest.valid), live=live)
+    return arrays, rng
+
+
+_ORDER = ("q", "q_proj", "r", "leaf_lo", "leaf_hi", "leaf_valid",
+          "breakpoints", "points", "point_valid", "live")
+
+
+# Tolerance: both sides compute sqrt(max(qq - 2 q.p + pp, 0)) in f32, but
+# the q.p sums run in another order (XLA's dot vs torch.matmul), which moves
+# the last bits of d^2 (|x|^2 ~ 10 here, so ~1e-6) and of its square root.
+RTOL = ATOL = 1e-5
+
+
+@pytest.mark.parametrize("probe_depth", [0, 2])
+@pytest.mark.parametrize("B,n,ls,per_tree,use_live",
+                         [(5, 700, 16, False, True), (11, 523, 8, True, False),
+                          (8, 1000, 32, False, False)])
+def test_range_rerank_matches_reference(B, n, ls, per_tree, use_live,
+                                        probe_depth):
+    K, L, d = 4, 3, 8
+    a, rng = _rerank_inputs(B, n, K, L, ls, d, seed=n)
+    # Radii around the leaf-LB scale, a done lane (-1), per tree or shared.
+    shape = (L, B) if per_tree else (B,)
+    a["r"] = rng.uniform(0.5, 3.0, shape).astype(np.float32)
+    a["r"][..., 1] = -1.0      # per-tree radii are never widened by probes
+    live = a["live"] if use_live else None
+    args_j = [jnp.asarray(a[k]) for k in _ORDER[:-1]]
+    args_t = [torch.tensor(a[k]) for k in _ORDER[:-1]]
+    want = np.asarray(jops.range_rerank(
+        *args_j, None if live is None else jnp.asarray(live), leaf_size=ls,
+        probe_depth=probe_depth, interpret=True))
+    got = tops.range_rerank(
+        *args_t, None if live is None else torch.tensor(live), leaf_size=ls,
+        probe_depth=probe_depth).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    assert fin.any() and (~fin).any()     # both branches exercised
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+    assert np.isinf(got[:, 1]).all()      # the done lane admits nothing
+
+
+def test_forest_leaf_lb_and_probe_radii_match_reference():
+    a, rng = _rerank_inputs(7, 600, 4, 3, 16, 8, seed=3)
+    args = [a[k] for k in ("q_proj", "leaf_lo", "leaf_hi", "leaf_valid",
+                           "breakpoints")]
+    got = tref.forest_leaf_lb(*map(torch.tensor, args)).numpy()
+    want = np.asarray(jref.forest_leaf_lb(*map(jnp.asarray, args)))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    r = rng.uniform(0.5, 2.0, 7).astype(np.float32)
+    r[0] = -1.0
+    r_got, m_got = tref.probe_radii_from_lb(torch.tensor(want),
+                                            torch.tensor(r), 2)
+    r_want, m_want = jref.probe_radii_from_lb(jnp.asarray(want),
+                                              jnp.asarray(r), 2)
+    np.testing.assert_array_equal(r_got.numpy(), np.asarray(r_want))
+    np.testing.assert_array_equal(m_got.numpy(), np.asarray(m_want))
+
+
+def test_leaf_bounds_and_l2_rerank_match_reference():
+    a, _ = _rerank_inputs(4, 400, 4, 2, 16, 8, seed=5)
+    args = (a["q_proj"][0, 0], a["leaf_lo"][0], a["leaf_hi"][0],
+            a["leaf_valid"][0], a["breakpoints"][0])
+    for g, w in zip(tref.leaf_bounds(*map(torch.tensor, args)),
+                    jref.leaf_bounds(*map(jnp.asarray, args))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+    pts = a["points"][0]
+    np.testing.assert_allclose(
+        tref.l2_rerank(torch.tensor(a["q"]), torch.tensor(pts)).numpy(),
+        np.asarray(jref.l2_rerank(jnp.asarray(a["q"]), jnp.asarray(pts))),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_ops_refuse_a_device_without_a_kernel():
+    x = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops.encode_pack(x, torch.zeros((8, 5), device="meta"), K=4, L=2)
+
+
+def test_kernel_build_dir_needs_a_source_checkout(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+    root = _build.CSRC.parents[3]
+    assert _build.build_dir() == root / "build" / "repro_torch_kernels"
+    installed = tmp_path / "site-packages" / "repro_torch" / "kernels" / "csrc"
+    monkeypatch.setattr(_build, "CSRC", installed)
+    with pytest.raises(RuntimeError, match="source checkout"):
+        _build.library_path("encode_pack")
