@@ -20,6 +20,25 @@ Phases, each printed as one line; any failure exits non-zero:
              1/2 - 1/e.  Both kernels' launch counts must move on this path.
              main_path_scaled_r_min: the same batch started at the true
              k-NN distance scale / c^2, so that several rounds run.
+  leaf_bounds  the kernel against its plain version for the 100 main-path
+             queries over the whole forest: LB and UB bit-identical.
+  l2_rerank  the kernel against its plain version at the vmap path's shape
+             (100 lanes of 1 query x 2,048 candidates gathered from the
+             first round, d = 128; f32 and bf16) and at one all-pairs shape
+             (100 x 65,536); torch.cdist timed beside it as a yardstick.
+  vmap_path  the per-query engine on the same index: SearchRequest(k=50,
+             engine='vmap', bounds_impl='pallas', dist_impl='pallas') on the
+             100 queries (both kernels' launch counts must move), engine=
+             'auto' on 1 and 7 queries (must resolve to vmap) and
+             mode='strict' on 7, each held lane by lane against the same
+             request with 'pallas_interpret' (the plain versions on the
+             card); warm ms for B = 1, 7, 100 with 'pallas' and 'auto'
+             impls (median of 20 synced searches, min and max beside it),
+             recall@50 and the c^2 rate against exact search.
+             vmap_scaled_r_min: B = 100 ('vmap') and B = 7 ('auto') started
+             at the true k-NN scale / c^2, held lane by lane against
+             'pallas_interpret' as above; some lane must run >= 2 rounds.
+             vmap_breakdown: CUDA-event ms of each step of one round.
   range_rerank  the kernel against its plain version at the main path's
              last radius round, probe_depth 0 and 2: identical +inf mask,
              finite entries within rtol 1e-4 / atol 1e-4 * max|x|^2 (the
@@ -27,10 +46,11 @@ Phases, each printed as one line; any failure exits non-zero:
   search_breakdown  CUDA-event ms of each step of that round (kernel,
              inv_perm fold, T1/T2 update) and of the final top-k.
   persist    save -> load(device='cuda') -> search gives bit-identical ids
-             and distances.
+             and distances, on the fused and on the vmap request.
 
 Then one JSON line per the kernel table (time, plain time, launches on the
-main path, least possible time from bytes and operations), the card's name
+path that runs the kernel, least possible time from bytes and operations,
+and a PyTorch call's time where one computes the same function), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 67 TFLOP/s fp32
 on the CUDA cores.
@@ -38,6 +58,7 @@ on the CUDA cores.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -129,14 +150,315 @@ def check_encode_pack(torch, n: int, K: int, L: int, Nr: int) -> dict:
     return out
 
 
+def _q_proj(index, queries):
+    p = index.params
+    B = queries.shape[0]
+    return (queries @ index.A).reshape(B, p.L, p.K).permute(1, 0,
+                                                          2).contiguous()
+
+
+def check_leaf_bounds(torch, index, queries) -> dict:
+    from repro_torch.kernels import leaf_bounds as lbk
+    from repro_torch.kernels import ref
+    f = index.forest
+    q_proj = _q_proj(index, queries)
+    args = (q_proj, f.leaf_lo, f.leaf_hi, f.leaf_valid, f.breakpoints)
+    got = lbk.leaf_bounds(*args)
+    want = ref.leaf_bounds(*args)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for name, g, w in zip(("lb", "ub"), got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"leaf_bounds: {name} has another shape or dtype")
+        fin = torch.isfinite(w)
+        require(torch.equal(fin, torch.isfinite(g)),
+                f"leaf_bounds: {name} +inf mask differs")
+        max_err = max(max_err, float((g[fin].double() - w[fin].double())
+                                     .abs().max()))
+        require(torch.equal(g, w),
+                f"leaf_bounds: {name} is not bit-identical to the plain "
+                f"version (max err {max_err})")
+    ms = time_ms(torch, lambda: lbk.leaf_bounds(*args))
+    plain = time_ms(torch, lambda: ref.leaf_bounds(*args), warmup=1, reps=10)
+    L, B, K = q_proj.shape
+    nl, E = f.n_leaves, f.breakpoints.shape[2]
+    nbytes = (4 * L * B * K + 2 * 2 * L * nl * K + L * nl + 4 * L * K * E
+              + 2 * 4 * L * B * nl)
+    flops = 13 * L * B * nl * K                  # LB 6 + UB 7 per (k, pair)
+    bms, by = bound_ms(nbytes, flops)
+    out = dict(L=L, B=B, nl=nl, K=K, bit_identical=True, max_abs_err=max_err,
+               invalid_leaves=int((~f.leaf_valid).sum()), ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes,
+               flops=flops)
+    line("leaf_bounds", **out)
+    return out
+
+
+def _l2_case(torch, name, q, c, max_sq, *, timed: bool) -> dict:
+    """The l2_rerank kernel against its plain version on q (G, b, d),
+    c (G, m, d); tolerance 1e-4 * |d| + 1e-4 * max|x|^2 (f32) or 5e-2 * |d|
+    + 5e-2 (bf16 inputs): qq - 2 q.c + cc cancels near zero."""
+    from repro_torch.kernels import l2_rerank as l2k
+    from repro_torch.kernels import ref
+    got = l2k.l2_rerank(q, c)
+    want = ref.l2_rerank(q, c)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if q.dtype == torch.bfloat16:
+        tol = 5e-2 * want.abs() + 5e-2
+    else:
+        tol = 1e-4 * want.abs() + 1e-4 * max_sq
+    max_err = float(err.max())
+    require(bool(torch.isfinite(got).all()) and bool((err <= tol).all()),
+            f"l2_rerank {name}: outside tolerance (max err {max_err})")
+    G, b, d = q.shape
+    m = c.shape[1]
+    elem = q.element_size()
+    nbytes = elem * G * (b + m) * d + 4 * G * b * m
+    flops = 2 * d * G * m * (b + 1)
+    bms, by = bound_ms(nbytes, flops)
+    out = dict(case=name, G=G, b=b, m=m, d=d, dtype=str(q.dtype),
+               max_abs_err=max_err, bound_ms=bms, bound_by=by, bytes=nbytes,
+               flops=flops)
+    if timed:
+        out["ms"] = time_ms(torch, lambda: l2k.l2_rerank(q, c))
+        out["plain_ms"] = time_ms(torch, lambda: ref.l2_rerank(q, c),
+                                  warmup=1, reps=10)
+        out["library_ms"] = time_ms(torch, lambda: torch.cdist(q, c))
+    line("l2_rerank", **out)
+    return out
+
+
+def check_l2_rerank(torch, index, queries, r_min: float, M: int) -> dict:
+    from repro_torch.core import query
+    f, p = index.forest, index.params
+    B, n = queries.shape[0], index.n_points
+    r = torch.full((B,), r_min, dtype=torch.float32, device=queries.device)
+    ids, _ = query.range_query_round(f, _q_proj(index, queries),
+                                     p.epsilon * r, M, bounds_impl="pallas")
+    pts = index.data[torch.clamp(ids.to(torch.int64), 0, n - 1)]
+    max_sq = float((index.data * index.data).sum(-1).max())
+    path = _l2_case(torch, "path", queries[:, None, :].contiguous(), pts,
+                    max_sq, timed=True)
+    bf16 = _l2_case(torch, "path_bf16",
+                    queries[:, None, :].to(torch.bfloat16).contiguous(),
+                    pts.to(torch.bfloat16), max_sq, timed=False)
+    pairs = _l2_case(torch, "all_pairs", queries[None],
+                     index.data[None, :65536].contiguous(), max_sq,
+                     timed=True)
+    return dict(path, max_abs_err=max(path["max_abs_err"],
+                                      bf16["max_abs_err"],
+                                      pairs["max_abs_err"]))
+
+
+def held_against_plain(name: str, kern, plain, c: float,
+                       max_sq: float) -> int:
+    """Hold a search that ran the kernels against the same request on the
+    plain versions, lane by lane.  Leaf bounds are bit-identical, so the
+    runs admit the same candidates; distances differ by summation order.
+    A lane may differ only where that can flip a decision: its k-th
+    distance lies within tolerance of c * r (the T2 test stopped one run a
+    round early), or every id that differs sits at a distance within
+    tolerance of the k-th distance or of a neighbour's (a tie swap).
+    Returns the number of such lanes; any other difference fails."""
+    ki, pi = kern.ids.cpu().numpy(), plain.ids.cpu().numpy()
+    kd = kern.dists.cpu().numpy().astype(np.float64)
+    pd = plain.dists.cpu().numpy().astype(np.float64)
+    kr, pr = (x.stats.rounds.cpu().numpy() for x in (kern, plain))
+    kn, pn = (x.stats.n_candidates.cpu().numpy() for x in (kern, plain))
+    kf, pf = (x.stats.final_r.cpu().numpy() for x in (kern, plain))
+
+    def near(x: float, y: float) -> bool:
+        return bool(np.isfinite(y)) and abs(x - y) <= 1e-4 * abs(y) \
+            + 1e-4 * max_sq
+
+    excused = 0
+    for b in range(ki.shape[0]):
+        fin = np.isfinite(pd[b])
+        dist_ok = (np.array_equal(fin, np.isfinite(kd[b]))
+                   and all(near(kd[b][j], pd[b][j]) for j in np.nonzero(fin)[0]))
+        same = (np.array_equal(ki[b], pi[b]) and kr[b] == pr[b]
+                and kn[b] == pn[b])
+        if same and dist_ok:
+            continue
+        t2_edge = (near(kd[b][-1], c * kf[b]) or near(pd[b][-1], c * pf[b]))
+        k = len(pd[b])
+        swap = (kr[b] == pr[b] and kn[b] == pn[b] and dist_ok and all(
+            near(pd[b][j], pd[b][-1])
+            or (j > 0 and near(pd[b][j], pd[b][j - 1]))
+            or (j + 1 < k and near(pd[b][j], pd[b][j + 1]))
+            for j in np.nonzero(ki[b] != pi[b])[0]))
+        require(t2_edge or swap,
+                f"{name}: lane {b} differs from the plain versions' run "
+                f"(rounds {kr[b]}/{pr[b]}, candidates {kn[b]}/{pn[b]})")
+        excused += 1
+    return excused
+
+
+def vmap_breakdown(torch, index, queries, r_min: float, req) -> None:
+    """CUDA-event ms of each step of one vmap round at B = 100 (the first
+    round, from empty candidate sets) and of the final top-k, one at a
+    time; their sum against the search's host-clock time is the launch
+    and sync overhead of the round loop."""
+    from repro_torch.core import candidates as cand
+    from repro_torch.core import query
+    from repro_torch.kernels import ops
+    f, p = index.forest, index.params
+    B, n = queries.shape[0], index.n_points
+    q_proj = _q_proj(index, queries)
+    r = torch.full((B,), r_min, dtype=torch.float32, device=queries.device)
+    cfg = query.QueryConfig(k=req.k, M=req.M, r_min=r_min)
+    cap = query._auto_cap(n, p, cfg, f)
+    ids, ok = query.range_query_round(f, q_proj, p.epsilon * r, req.M,
+                                      bounds_impl="pallas")
+    pts = index.data[torch.clamp(ids.to(torch.int64), 0, n - 1)]
+    d = query.exact_distances(index.data, queries, ids, ok, impl="pallas")
+    cs0 = cand.init_state(n, cap, B, queries.device)
+    cs = cand.merge_round(n, cs0, torch.where(ok, ids, n), d)
+    steps = {
+        "leaf_bounds": lambda: ops.leaf_bounds(
+            q_proj, f.leaf_lo, f.leaf_hi, f.leaf_valid, f.breakpoints),
+        "range_query_round": lambda: query.range_query_round(
+            f, q_proj, p.epsilon * r, req.M, bounds_impl="pallas"),
+        "gather_rows": lambda: index.data[torch.clamp(ids.to(torch.int64),
+                                                      0, n - 1)],
+        "l2_rerank": lambda: ops.l2_rerank(queries[:, None, :], pts),
+        "init_state": lambda: cand.init_state(n, cap, B, queries.device),
+        "merge_round": lambda: cand.merge_round(
+            n, cs0, torch.where(ok, ids, n), d),
+        "t1_t2": lambda: (cs.dists <= p.c * r[:, None]).sum(1),
+        "final_topk": lambda: query._topk_smallest(cs.dists, req.k),
+    }
+    line("vmap_breakdown", B=B, cap=cap,
+         **{name: time_ms(torch, fn, warmup=1, reps=5)
+            for name, fn in steps.items()})
+
+
+def host_ms(torch, fn, *, reps: int = 20) -> dict:
+    """Host-clock ms of ``fn``, each run ended by a device sync, over
+    ``reps`` runs after one warm-up: the median, with the min and max as
+    its spread."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(median=statistics.median(times), min=min(times),
+                max=max(times))
+
+
+def vmap_path(torch, index, queries) -> tuple:
+    """The per-query engine on the main path's index and queries."""
+    import repro_torch.api as api
+    from repro_torch.baselines.brute_force import BruteForce
+    from repro_torch.kernels import l2_rerank as l2k
+    from repro_torch.kernels import leaf_bounds as lbk
+    kern_impl = dict(bounds_impl="pallas", dist_impl="pallas")
+    plain_impl = dict(bounds_impl="pallas_interpret",
+                      dist_impl="pallas_interpret")
+    c = index.params.c
+    max_sq = float((index.data * index.data).sum(-1).max())
+    req = api.SearchRequest(k=50, engine="vmap", **kern_impl)
+
+    def counts() -> dict:
+        return {"leaf_bounds": lbk.leaf_bounds.launches,
+                "l2_rerank": l2k.l2_rerank.launches}
+
+    lbk.leaf_bounds.launches = 0
+    l2k.l2_rerank.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = index.search(queries, req)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the vmap path never launched: {launches}")
+    require(res.stats.engine == "vmap", "engine='vmap' did not run vmap")
+
+    # The estimated r_min overshoots at n = 1M, so the runs above stop in
+    # round 1; started at the true k-NN scale / c^2 the lanes run several
+    # rounds (merge into set bitmaps, stopped lanes masked, radius growth).
+    gt_ids, gt_d = BruteForce(index.data).query(queries, req.k)
+    r_scale = float(gt_d[:, -1].median()) / (c * c)
+    scaled = dict(k=50, r_min=r_scale, **kern_impl)
+    runs = {"B100": (queries, req),
+            "B1_auto": (queries[:1], api.SearchRequest(k=50, engine="auto",
+                                                       **kern_impl)),
+            "B7_auto": (queries[:7], api.SearchRequest(k=50, engine="auto",
+                                                       **kern_impl)),
+            "B7_strict": (queries[:7], api.SearchRequest(
+                k=50, engine="auto", mode="strict", **kern_impl)),
+            "B100_scaled": (queries, api.SearchRequest(engine="vmap",
+                                                       **scaled)),
+            "B7_auto_scaled": (queries[:7], api.SearchRequest(engine="auto",
+                                                              **scaled))}
+    excused, results, run_launches = {}, {}, {}
+    for name, (qs, r) in runs.items():
+        before = counts()
+        got = res if name == "B100" else index.search(qs, r)
+        after = counts()
+        run_launches[name] = (launches if name == "B100" else
+                              {k: after[k] - before[k] for k in after})
+        require(all(v > 0 for v in run_launches[name].values()),
+                f"{name}: the vmap kernels did not launch")
+        require(got.stats.engine == "vmap",
+                f"{name}: resolved to {got.stats.engine}, not vmap")
+        plain = index.search(qs, dataclasses.replace(r, **plain_impl))
+        require(counts() == after,
+                f"{name}: pallas_interpret launched a kernel")
+        excused[name] = held_against_plain(name, got, plain, c, max_sq)
+        results[name] = got
+
+    def quality(got, n_q: int) -> dict:
+        hits = (got.ids.to(torch.int64)[:, :, None]
+                == gt_ids[:n_q, None, :]).any(-1).sum(-1)
+        rate = (got.dists <= c * c * gt_d[:n_q] + 1e-4).all(dim=1)
+        rounds = got.stats.rounds.float()
+        cands = got.stats.n_candidates.float()
+        return dict(rounds_mean=float(rounds.mean()),
+                    rounds_max=int(rounds.max()),
+                    n_candidates_mean=float(cands.mean()),
+                    n_candidates_max=int(cands.max()),
+                    recall_at_50=float(hits.float().mean()) / req.k,
+                    c2_guarantee_rate=float(rate.float().mean()))
+
+    for name in ("B100_scaled", "B7_auto_scaled"):
+        q_stats = quality(results[name], runs[name][0].shape[0])
+        require(q_stats["rounds_max"] >= 2,
+                f"{name}: no lane ran a second round at r_min={r_scale}")
+        line("vmap_scaled_r_min", run=name, r_min=r_scale,
+             launches=run_launches[name], **q_stats,
+             lanes_differing_at_a_tie=excused[name])
+
+    warm_ms = {}
+    for B in (1, 7, 100):
+        for impl in ("pallas", "auto"):
+            r = api.SearchRequest(k=50, engine="vmap" if B == 100 else "auto",
+                                  bounds_impl=impl, dist_impl=impl)
+            warm_ms[f"B{B}_{impl}"] = host_ms(
+                torch, lambda: index.search(queries[:B], r))
+    warm_ms["B100_scaled_pallas"] = host_ms(
+        torch, lambda: index.search(queries, runs["B100_scaled"][1]))
+
+    vmap_breakdown(torch, index, queries, res.stats.r_min, req)
+    line("vmap_path", B=queries.shape[0], k=req.k, M=req.M,
+         r_min=res.stats.r_min, first_search_ms=first_ms, warm_ms=warm_ms,
+         **quality(res, queries.shape[0]),
+         lanes_differing_at_a_tie=excused, launches=launches)
+    return res, req, launches
+
+
 def check_range_rerank(torch, index, queries, final_r, probe_depth: int,
                        timed: bool) -> dict:
     from repro_torch.kernels import range_rerank as rr
     from repro_torch.kernels import ref
     f, plan, p = index.forest, index.fused_plan(), index.params
     B = queries.shape[0]
-    q_proj = (queries @ index.A).reshape(B, p.L, p.K).permute(1, 0, 2)
-    q_proj = q_proj.contiguous()
+    q_proj = _q_proj(index, queries)
     r_eff = p.epsilon * final_r                          # the last round
     if probe_depth:
         r_adm = ref.probe_radii(q_proj, f.leaf_lo, f.leaf_hi, f.leaf_valid,
@@ -192,8 +514,7 @@ def search_breakdown(torch, index, queries, final_r, k: int) -> None:
     from repro_torch.kernels import ops
     f, plan, p = index.forest, index.fused_plan(), index.params
     B, n = queries.shape[0], index.n_points
-    q_proj = (queries @ index.A).reshape(B, p.L, p.K).permute(1, 0, 2)
-    q_proj = q_proj.contiguous()
+    q_proj = _q_proj(index, queries)
     r_eff = p.epsilon * final_r
 
     def rerank():
@@ -307,7 +628,9 @@ def main_path(torch, n: int, B: int) -> tuple:
     return index, queries, res2, req, launches
 
 
-def check_persist(torch, index, queries, res, req) -> None:
+def check_persist(torch, index, queries, searches) -> None:
+    """save -> load -> search is bit-identical for every (result, request)
+    of ``searches``."""
     import repro_torch.api as api
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "snapshot")
@@ -317,10 +640,12 @@ def check_persist(torch, index, queries, res, req) -> None:
         t0 = time.perf_counter()
         loaded = api.load(path, device="cuda")
         load_s = time.perf_counter() - t0
-        again = loaded.search(queries, req)
-    require(torch.equal(again.ids, res.ids)
-            and torch.equal(again.dists, res.dists),
-            "save -> load -> search is not bit-identical")
+        for res, req in searches:
+            again = loaded.search(queries, req)
+            require(torch.equal(again.ids, res.ids)
+                    and torch.equal(again.dists, res.dists),
+                    f"save -> load -> search ({req.engine}) is not "
+                    f"bit-identical")
     line("persist", bit_identical=True, save_seconds=save_s,
          load_seconds=load_s)
 
@@ -355,12 +680,15 @@ def main() -> int:
     enc = check_encode_pack(torch, n, K=16, L=4, Nr=256)
     enc4 = check_encode_pack(torch, n, K=4, L=16, Nr=256)
     index, queries, res, req, launches = main_path(torch, n, B=100)
+    lbd = check_leaf_bounds(torch, index, queries)
+    l2 = check_l2_rerank(torch, index, queries, res.stats.r_min, M=8)
+    vres, vreq, vlaunches = vmap_path(torch, index, queries)
     rr0 = check_range_rerank(torch, index, queries, res.stats.final_r, 0,
                              timed=True)
     rr2 = check_range_rerank(torch, index, queries, res.stats.final_r, 2,
                              timed=False)
     search_breakdown(torch, index, queries, res.stats.final_r, req.k)
-    check_persist(torch, index, queries, res, req)
+    check_persist(torch, index, queries, [(res, req), (vres, vreq)])
 
     print(json.dumps({"kernels": [
         {"name": "encode_pack", "route": "cuda",
@@ -379,6 +707,22 @@ def main() -> int:
          "ms": rr0["ms"], "plain_ms": rr0["plain_ms"],
          "bound_ms": rr0["bound_ms"], "bound_by": rr0["bound_by"],
          "library_ms": None},
+        {"name": "leaf_bounds", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/leaf_bounds.cu",
+         "replaces": "src/repro/kernels/leaf_bounds.py:50",
+         "launches": vlaunches["leaf_bounds"],
+         "max_abs_err": lbd["max_abs_err"],
+         "ms": lbd["ms"], "plain_ms": lbd["plain_ms"],
+         "bound_ms": lbd["bound_ms"], "bound_by": lbd["bound_by"],
+         "library_ms": None},
+        {"name": "l2_rerank", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/l2_rerank.cu",
+         "replaces": "src/repro/kernels/l2_rerank.py:29",
+         "launches": vlaunches["l2_rerank"],
+         "max_abs_err": l2["max_abs_err"],
+         "ms": l2["ms"], "plain_ms": l2["plain_ms"],
+         "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
+         "library_ms": l2["library_ms"]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+from repro_torch.api.protocol import (AnnIndex, LegacyIndexAdapter,
+                                      MutableAnnIndex, as_ann_index)
 from repro_torch.api.persist import (FORMAT_VERSION, SnapshotFormatError,
                                      SnapshotIntegrityError, load, save)
 from repro_torch.api.registry import (EngineSpec, available_engines,
@@ -51,6 +53,7 @@ def build(data: Any, generator: Any = None, spec: Optional[IndexSpec] = None,
 
 
 __all__ = [
+    "AnnIndex", "MutableAnnIndex", "LegacyIndexAdapter", "as_ann_index",
     "IndexSpec", "PlacementSpec", "SearchRequest", "SearchResult",
     "SearchStats", "EngineSpec", "register_engine", "resolve_engine",
     "available_engines", "get_engine", "build", "load", "save",

@@ -3,10 +3,8 @@
 Engines are the batched c^2-k-ANN execution strategies.
 ``core/query.py`` registers the built-in ones at import time:
 
-  * ``vmap``  — the per-query engine; supports both admission modes ('leaf'
-    and the unoptimized 'strict' Alg. 3 filter).  Registered with the
-    reference's modes, batch floor and priority so resolution answers as
-    the reference does; running it raises until its slice of the port.
+  * ``vmap``  — the per-query engine (lanes batched); supports both
+    admission modes ('leaf' and the unoptimized 'strict' Alg. 3 filter).
   * ``fused`` — the one-pass range_rerank engine; 'leaf' mode only,
     amortized at batch >= its ``min_batch``.
 

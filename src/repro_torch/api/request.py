@@ -15,9 +15,10 @@ from typing import Any, NamedTuple, Optional, Sequence
 from repro_torch.api import registry
 
 MODES = ("leaf", "strict")
-# Implementation names an IndexSpec accepts (kept so a snapshot's spec
-# round-trips with the reference package); the port picks its kernels by
-# device and ignores them.
+# Implementation names, as the reference package has them.  'auto'/'xla'
+# run plain tensor code, 'pallas' the hand-written kernel (CUDA tensors) or
+# its plain version (CPU tensors), 'pallas_interpret' the kernel's plain
+# version on either device.
 IMPLS = ("auto", "xla", "pallas", "pallas_interpret")
 
 
@@ -40,7 +41,9 @@ class SearchRequest:
     ``engine=None`` means the index's default (its ``IndexSpec`` engine,
     itself 'auto'); ``r_min=None`` means the index's cached per-k estimate.
     ``n_active`` marks trailing pad lanes of a partial batch done from
-    round 0.  ``M`` is the vmap engine's leaves per tree per round.
+    round 0.  ``M`` is the vmap engine's leaves per tree per round;
+    ``bounds_impl`` / ``dist_impl`` pick its leaf-bound and rerank code
+    ('pallas' reaches the ``leaf_bounds`` / ``l2_rerank`` kernels).
     """
 
     k: int = 10
@@ -50,6 +53,8 @@ class SearchRequest:
     engine: Optional[str] = None
     n_active: Optional[int] = None
     max_rounds: int = 48
+    dist_impl: str = "auto"
+    bounds_impl: str = "auto"
     probe_depth: Optional[int] = None
 
     def __post_init__(self) -> None:
@@ -64,6 +69,8 @@ class SearchRequest:
         if self.probe_depth is not None:
             _check_positive("probe_depth", self.probe_depth, minimum=0)
         _check_choice("mode", self.mode, MODES)
+        _check_choice("dist_impl", self.dist_impl, IMPLS)
+        _check_choice("bounds_impl", self.bounds_impl, IMPLS)
         registry.validate_engine_name(self.engine)
         if self.probe_depth and self.mode == "strict":
             raise ValueError(
@@ -73,9 +80,11 @@ class SearchRequest:
 
     def to_query_config(self, *, default_engine: str = "auto",
                         r_min: Optional[float] = None,
+                        k: Optional[int] = None,
                         default_probe_depth: int = 0) -> Any:
         """Lower to the engine-level ``core.query.QueryConfig``; ``r_min``
-        overrides the request's (the index fills in its cached estimate)."""
+        and ``k`` override the request's (the index fills in its cached
+        radius estimate)."""
         from repro_torch.core.query import QueryConfig
         rm = self.r_min if r_min is None else r_min
         if rm is None:
@@ -84,9 +93,10 @@ class SearchRequest:
         pd = (self.probe_depth if self.probe_depth is not None
               else default_probe_depth)
         return QueryConfig(
-            k=self.k, M=self.M, r_min=float(rm), mode=self.mode,
-            max_rounds=self.max_rounds,
+            k=self.k if k is None else k, M=self.M, r_min=float(rm),
+            mode=self.mode, max_rounds=self.max_rounds,
             engine=self.engine or default_engine,
+            dist_impl=self.dist_impl, bounds_impl=self.bounds_impl,
             probe_depth=0 if self.mode == "strict" else int(pd))
 
 

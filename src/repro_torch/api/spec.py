@@ -80,11 +80,20 @@ class IndexSpec:
 
     Theory knobs (K/L/c/beta_override) feed ``derive_params`` (Lemma 3);
     layout knobs (Nr/leaf_size/breakpoint_method) shape the DE-Forest;
-    ``engine``/``probe_depth`` set search-time defaults.  The impl knobs,
-    ``block_*`` and ``build_chunk`` are the reference's TPU tiling choices:
-    accepted and kept for the round trip, unused by the port, whose kernels
-    are chosen by device and tile themselves.  ``build_impl='reference'``
-    selects the per-tree oracle builder.
+    ``engine``/``probe_depth`` set search-time defaults.
+    ``build_impl='reference'`` selects the per-tree oracle builder; every
+    other value runs the fused builder.  Its encode step follows
+    ``build_impl`` (``encode_impl`` where ``build_impl`` is 'auto'), as the
+    reference's does: 'auto'/'pallas' run the ``encode_pack`` kernel on a
+    CUDA tensor (its plain version on a CPU one), 'xla'/'pallas_interpret'
+    its plain version on either device.  ``project_impl`` in the pallas
+    names asks for the ``lsh_project`` kernel, and ``encode_impl`` in the
+    pallas names with the reference builder for ``encode_bins``: neither is
+    ported yet, so such a build raises ``NotImplementedError`` (loading a
+    snapshot with such a spec works: nothing is projected at load).
+    ``block_*`` and ``build_chunk`` are the reference's TPU tiling choices,
+    kept for the round trip and unused by the port's kernels, which tile
+    themselves.
     """
 
     kind: str = "static"
@@ -149,6 +158,23 @@ class IndexSpec:
                     f"placement is only supported for kind='static' (the "
                     f"sharded PDET index); kind={self.kind!r} cannot be "
                     f"placed on a mesh yet")
+
+    def check_buildable(self) -> None:
+        """Raise ``NotImplementedError`` where this spec asks for a kernel
+        the port has not ported yet (see ROADMAP.md, Queue 2)."""
+        pallas = ("pallas", "pallas_interpret")
+        if self.project_impl in pallas:
+            raise NotImplementedError(
+                f"project_impl={self.project_impl!r} runs the lsh_project "
+                f"kernel, which is not ported to CUDA yet (ROADMAP.md "
+                f"Queue 2, kernels/lsh_project.py); build with "
+                f"project_impl='auto'")
+        if self.build_impl == "reference" and self.encode_impl in pallas:
+            raise NotImplementedError(
+                f"build_impl='reference' with encode_impl="
+                f"{self.encode_impl!r} runs the encode_bins kernel, which "
+                f"is not ported to CUDA yet (ROADMAP.md Queue 2, "
+                f"kernels/encode_bins.py); use encode_impl='auto'")
 
     def derive_params(self) -> Any:
         """Solve the Lemma 3 system for this spec -> ``LSHParams``."""

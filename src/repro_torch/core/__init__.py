@@ -8,7 +8,7 @@ High-level API (see ``repro_torch.api``)::
     res = index.search(queries, api.SearchRequest(k=50))
     index.save("snap/"); index = api.load("snap/")
 
-Submodules: theory, hashing, encoding, detree, query.
+Submodules: theory, hashing, encoding, detree, candidates, query.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ class DETLSH:
               params: Optional[LSHParams] = None, *,
               Nr: int = encoding.DEFAULT_NR, leaf_size: int = 64,
               breakpoint_method: str = "sample_sort",
-              build_impl: str = "auto",
+              build_impl: str = "auto", encode_impl: str = "auto",
               device: Optional[Any] = None) -> "DETLSH":
         """One-shot static build (Alg. 1 + 2) on ``device`` (CUDA unless
         the caller asks otherwise).  ``generator`` draws A and then the
@@ -101,7 +101,7 @@ class DETLSH:
                               leaf_size=leaf_size,
                               breakpoint_method=breakpoint_method,
                               generator=generator, build_impl=build_impl,
-                              stage_seconds=seconds)
+                              encode_impl=encode_impl, stage_seconds=seconds)
         return cls(params=params, A=A, forest=forest, data=x,
                    build_seconds=seconds)
 
@@ -112,10 +112,12 @@ class DETLSH:
         if spec.kind != "static":
             raise ValueError(f"DETLSH.from_spec needs kind='static', got "
                              f"{spec.kind!r} (use repro_torch.api.build)")
+        spec.check_buildable()
         idx = cls.build(data, generator, spec.derive_params(), Nr=spec.Nr,
                         leaf_size=spec.leaf_size,
                         breakpoint_method=spec.breakpoint_method,
-                        build_impl=spec.build_impl, device=device)
+                        build_impl=spec.build_impl,
+                        encode_impl=spec.encode_impl, device=device)
         idx.spec = spec
         return idx
 

@@ -32,6 +32,7 @@ from repro_torch.core import encoding as enc
 CODE_DTYPE = torch.uint8
 LEAF_DTYPE = torch.int16
 MAX_NR = 256          # uint8 code storage: region ids must fit [0, 255]
+_INF = float("inf")
 
 
 @dataclasses.dataclass
@@ -249,6 +250,7 @@ def build_forest(proj_all: torch.Tensor, K: int, L: int, *,
                  generator: Optional[torch.Generator] = None,
                  breakpoints: Optional[torch.Tensor] = None,
                  build_impl: str = "auto",
+                 encode_impl: str = "auto",
                  stage_seconds: Optional[dict] = None) -> DEForest:
     """Build L DE-Trees from projections (n, L*K) (paper Alg. 1 + Alg. 2).
 
@@ -257,10 +259,13 @@ def build_forest(proj_all: torch.Tensor, K: int, L: int, *,
     projections and breakpoints into this builder and the reference one.
 
     ``build_impl='reference'`` runs the per-tree double-argsort path; every
-    other value of ``IndexSpec.build_impl`` runs the fused pipeline, whose
-    ``encode_pack`` step launches the CUDA kernel for a CUDA tensor and its
-    plain version for a CPU one.  ``stage_seconds``, when given, receives
-    the seconds of each stage (breakpoints, encode_pack, sort, assemble).
+    other value runs the fused pipeline.  Its ``encode_pack`` step follows
+    ``build_impl``, or ``encode_impl`` where ``build_impl`` is 'auto', as
+    the reference's does: 'auto'/'pallas' launch the CUDA kernel for a CUDA
+    tensor (the plain version for a CPU one); 'xla'/'pallas_interpret' run
+    the plain version on either device.  ``stage_seconds``, when given,
+    receives the seconds of each stage (breakpoints, encode_pack, sort,
+    assemble).
     """
     n = proj_all.shape[0]
     if proj_all.shape[1] != L * K:
@@ -290,9 +295,13 @@ def build_forest(proj_all: torch.Tensor, K: int, L: int, *,
                         **{k: torch.stack([t[k] for t in trees])
                            for k in trees[0]})
 
+    impl = build_impl
+    if impl == "auto" and encode_impl != "auto":
+        impl = encode_impl            # an explicit encode impl wins on auto
     from repro_torch.kernels import ops
     proj_t, codes_t, key_hi, key_lo = ops.encode_pack(
-        proj_all.contiguous(), bp_all.contiguous(), K=K, L=L)
+        proj_all.contiguous(), bp_all.contiguous(), K=K, L=L,
+        interpret=impl in ("xla", "pallas_interpret"))
     clock.lap("encode_pack")
     order = code_sort_orders(key_hi, key_lo, K)
     clock.lap("sort")
@@ -308,12 +317,30 @@ def build_forest(proj_all: torch.Tensor, K: int, L: int, *,
 
 def leaf_bounds(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
                 leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
-                breakpoints: torch.Tensor) -> tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """LB/UB distances from a projected query to every leaf of one tree.
+                breakpoints: torch.Tensor, *,
+                impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """LB/UB distances from B projected queries to every leaf box of every
+    tree (Fig. 5): q_proj (L, B, K), leaf_lo/hi (L, n_leaves, K),
+    leaf_valid (L, n_leaves), breakpoints (L, K, Nr+1) -> (lb, ub), each
+    (L, B, n_leaves).  Invalid leaves get +inf.
 
-    q_proj: (K,); leaf_lo/hi: (n_leaves, K); breakpoints: (K, Nr+1).
-    Returns (lb, ub), each (n_leaves,).  Invalid leaves get lb = ub = +inf.
+    ``impl``: 'auto'/'xla' evaluate the reference's tensor expression
+    (squares summed with ``.sum(-1)``); 'pallas' runs the ``leaf_bounds``
+    kernel on a CUDA tensor (its plain version on a CPU one);
+    'pallas_interpret' runs that plain version on either device.
     """
-    from repro_torch.kernels import ref
-    return ref.leaf_bounds(q_proj, leaf_lo, leaf_hi, leaf_valid, breakpoints)
+    if impl in ("pallas", "pallas_interpret"):
+        from repro_torch.kernels import ops
+        return ops.leaf_bounds(q_proj, leaf_lo, leaf_hi, leaf_valid,
+                               breakpoints,
+                               interpret=(impl == "pallas_interpret"))
+    from repro_torch.kernels.ref import _edge_coords
+    b_lo, b_hi = (e[:, None] for e in _edge_coords(breakpoints, leaf_lo,
+                                                   leaf_hi))   # (L, 1, nl, K)
+    q = q_proj[:, :, None, :]                                  # (L, B, 1, K)
+    lb_dim = torch.clamp_min(torch.maximum(b_lo - q, q - b_hi), 0.0)
+    ub_dim = torch.maximum((q - b_lo).abs(), (q - b_hi).abs())
+    lb = torch.sqrt((lb_dim * lb_dim).sum(-1))
+    ub = torch.sqrt((ub_dim * ub_dim).sum(-1))
+    valid = leaf_valid.to(torch.bool)[:, None, :]
+    return torch.where(valid, lb, _INF), torch.where(valid, ub, _INF)

@@ -10,6 +10,22 @@ original-space distances, and terminates when
 
 returning the top-k of S by exact distance.
 
+Two engines, registered in ``repro_torch.api.registry`` as the reference
+registers its own:
+
+  * ``vmap`` — the reference's per-query ``while_loop`` under ``jax.vmap``,
+    with the lanes written out as a batch axis.  Each round fetches, per
+    tree, the M leaves of least LB (the paper's priority queue of leaves
+    becomes a top-M cut), admits those with LB <= eps*r (``mode='leaf'``)
+    or the points within eps*r in projected space (``mode='strict'``, the
+    unoptimized Alg. 3), reranks them exactly and merges them into the
+    incremental candidate set of ``core.candidates``.  All lanes advance
+    in one Python loop with one host sync a round; a lane whose loop
+    condition is false keeps its state, exactly as the vmapped loop
+    selects it.  ``bounds_impl``/``dist_impl='pallas'`` reach the
+    ``leaf_bounds`` and ``l2_rerank`` kernels.
+  * ``fused`` — see below.
+
 The fused engine advances the whole batch through the radius rounds
 together.  Each round is ONE ``range_rerank`` kernel launch (leaf LB +
 radius admission + exact rerank over all L trees); the round folds into a
@@ -27,8 +43,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.api import registry as engine_registry
-from repro_torch.core.detree import DEForest
+from repro_torch.core import candidates as cand
+from repro_torch.core.detree import DEForest, leaf_bounds
 from repro_torch.core.theory import LSHParams
+
+_INF = float("inf")
 
 
 class QueryResult(NamedTuple):
@@ -45,22 +64,28 @@ class QueryResult(NamedTuple):
 class QueryConfig:
     k: int = 50
     M: int = 8                 # leaves per tree per round (vmap engine)
+    cap: int = 0               # candidate buffer (0 = auto: beta*n + k + round)
     r_min: float = 1.0
     max_rounds: int = 48
     mode: str = "leaf"         # 'leaf' (optimized, default) | 'strict'
+    dist_impl: str = "auto"
+    bounds_impl: str = "auto"
     engine: str = "auto"       # batch engine: 'auto' or a registered name
     probe_depth: int = 0       # near-miss leaves admitted per (tree, round)
 
     def __post_init__(self):
-        from repro_torch.api.request import MODES, _check_choice, \
+        from repro_torch.api.request import IMPLS, MODES, _check_choice, \
             _check_positive
         _check_positive("k", self.k)
         _check_positive("M", self.M)
         _check_positive("max_rounds", self.max_rounds)
+        _check_positive("cap", self.cap, minimum=0)
         _check_positive("probe_depth", self.probe_depth, minimum=0)
         if not self.r_min > 0.0:
             raise ValueError(f"r_min must be positive, got {self.r_min!r}")
         _check_choice("mode", self.mode, MODES)
+        _check_choice("dist_impl", self.dist_impl, IMPLS)
+        _check_choice("bounds_impl", self.bounds_impl, IMPLS)
         engine_registry.validate_engine_name(self.engine)
         if self.probe_depth and self.mode == "strict":
             raise ValueError(
@@ -68,6 +93,255 @@ class QueryConfig:
                 "filter and admits no near-miss leaves; probe_depth must be "
                 f"0 in strict mode (got {self.probe_depth})")
 
+
+def _topk_smallest(vals: torch.Tensor, k: int) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """The k smallest of non-negative f32 ``vals`` along the last axis,
+    ascending: (positions int64, values).
+
+    Equal values come in ascending position order, the tie rule of the
+    reference's ``lax.top_k(-vals, k)``; ``torch.topk`` promises no tie
+    order.  So the selection runs on unique int64 keys: a value's f32 bit
+    pattern (which orders like the value for non-negative floats, +inf
+    included) above its position.  ``+ 0.0`` turns -0.0 into +0.0 first."""
+    bits = (vals + 0.0).view(torch.int32).to(torch.int64)
+    pos = torch.arange(vals.shape[-1], dtype=torch.int64, device=vals.device)
+    key = torch.topk(bits * (1 << 32) + pos, k, dim=-1, largest=False,
+                     sorted=True).values
+    sel = key & 0xFFFFFFFF
+    return sel, torch.gather(vals, -1, sel)
+
+
+# ---------------------------------------------------------------------------
+# Range query over the forest (one round, all L trees) — the vmap engine
+# ---------------------------------------------------------------------------
+
+def range_query_round(forest: DEForest, q_proj: torch.Tensor,
+                      r_proj: torch.Tensor, M: int, *, mode: str = "leaf",
+                      bounds_impl: str = "auto",
+                      live: Optional[torch.Tensor] = None,
+                      probe_depth: int = 0, with_stats: bool = False):
+    """Range query with projected radius ``r_proj`` in all L trees.
+
+    q_proj: (L, B, K) projected queries of B lanes and r_proj (B,) their
+    radii.  ``live`` is an optional (n,) bool tombstone mask in point-id
+    order (None = all live); dead points are rejected at admission, before
+    the exact rerank.
+
+    Per (tree, lane) the M leaves of least LB are fetched (ties to the
+    lower leaf index, as ``lax.top_k`` breaks them); those with LB <= r_proj
+    are admitted, and ``probe_depth > 0`` also admits the probe_depth
+    fetched leaves of least LB above the radius.
+
+    Returns (ids, ok): ids (B, L*M*leaf_size) int32 candidate point ids in
+    tree-major order, ok the bool mask.  With ``with_stats=True`` also (B,)
+    int32 counters (probed_leaves, probe_candidates) summed over trees.
+    """
+    ls, n = forest.leaf_size, forest.n
+    M = min(M, forest.n_leaves)
+    L, B, K = q_proj.shape
+    lb, _ = leaf_bounds(q_proj, forest.leaf_lo, forest.leaf_hi,
+                        forest.leaf_valid, forest.breakpoints,
+                        impl=bounds_impl)                      # (L, B, nl)
+    leaf_idx, lb_m = _topk_smallest(lb, M)                     # best-M by LB
+    r = r_proj[None, :, None]
+    leaf_ok = lb_m <= r                                        # LB <= eps*r
+    if probe_depth > 0:
+        outside = (~leaf_ok) & torch.isfinite(lb_m)
+        rank = torch.cumsum(outside, dim=-1)                   # slack order
+        probe_ok = outside & (rank <= probe_depth)
+        admit = leaf_ok | probe_ok
+    else:
+        probe_ok = torch.zeros_like(leaf_ok)
+        admit = leaf_ok
+    offs = torch.arange(ls, dtype=torch.int64, device=q_proj.device)
+    gidx = (leaf_idx[..., None] * ls + offs).reshape(L, B, M * ls)
+    n_pad = forest.point_ids.shape[1]
+    ids = torch.gather(forest.point_ids[:, None, :].expand(L, B, n_pad), 2,
+                       gidx)                                   # (L, B, M*ls)
+    ok = admit.repeat_interleave(ls, dim=-1) & (ids < n)
+    if live is not None:
+        ok = ok & live[torch.clamp(ids.to(torch.int64), 0, n - 1)]
+    if mode == "strict":
+        idx = gidx.reshape(L, B * M * ls, 1).expand(L, B * M * ls, K)
+        pts = torch.gather(forest.proj_sorted, 1, idx).reshape(L, B, M * ls,
+                                                               K)
+        d = torch.sqrt(((pts - q_proj[:, :, None, :]) ** 2).sum(-1))
+        ok = ok & (d <= r)
+    probed = probe_ok.sum((0, 2)).to(torch.int32)
+    pcand = (ok & probe_ok.repeat_interleave(ls, dim=-1)).sum((0, 2)).to(
+        torch.int32)
+    ids = ids.permute(1, 0, 2).reshape(B, L * M * ls)
+    ok = ok.permute(1, 0, 2).reshape(B, L * M * ls)
+    if with_stats:
+        return ids, ok, probed, pcand
+    return ids, ok
+
+
+# ---------------------------------------------------------------------------
+# Candidate set maintenance (unique ids, exact distances)
+# ---------------------------------------------------------------------------
+
+def _merge_candidates(n: int, buf_ids: torch.Tensor, buf_d: torch.Tensor,
+                      new_ids: torch.Tensor, new_d: torch.Tensor) -> tuple[
+                          torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-based merge — the semantics-of-record oracle that
+    ``core.candidates.merge_round`` is tested against.
+
+    Merges new candidates into the fixed-size buffer (last axis), dedup by
+    id; the buffer keeps the ``cap`` smallest-distance unique candidates.
+    Returns (ids, dists, unique_count_in_buffer).  Invalid slots carry
+    id = n and dist = +inf.
+    """
+    cap = buf_ids.shape[-1]
+    ids = torch.cat([buf_ids, new_ids], -1)
+    d = torch.cat([buf_d, new_d], -1)
+    ids_s, order = torch.sort(ids, dim=-1, stable=True)        # sentinels last
+    d_s = torch.gather(d, -1, order)
+    first = torch.ones_like(ids_s, dtype=torch.bool)
+    first[..., 1:] = ids_s[..., 1:] != ids_s[..., :-1]
+    keep = first & (ids_s < n)
+    d_s = torch.where(keep, d_s, _INF)
+    ids_s = torch.where(keep, ids_s, n)
+    sel, out_d = _topk_smallest(d_s, cap)            # retain the cap best
+    out_ids = torch.gather(ids_s, -1, sel)
+    return out_ids, out_d, (out_ids < n).sum(-1).to(torch.int32)
+
+
+def exact_distances(data: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
+                    ok: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Exact original-space distances for candidate ids (the paper's
+    rerank): q (B, d), ids/ok (B, m) -> (B, m), +inf where not ok.
+
+    'auto'/'xla' evaluate ``sqrt(sum((p - q)^2))``; 'pallas' runs the
+    ``l2_rerank`` kernel on the gathered rows of a CUDA tensor (its plain
+    version on a CPU one); 'pallas_interpret' that plain version anywhere.
+    """
+    n = data.shape[0]
+    pts = data[torch.clamp(ids.to(torch.int64), 0, n - 1)]     # (B, m, d)
+    if impl in ("pallas", "pallas_interpret"):
+        from repro_torch.kernels import ops
+        d = ops.l2_rerank(q[:, None, :], pts,
+                          interpret=(impl == "pallas_interpret"))[:, 0]
+    else:
+        d = torch.sqrt(torch.clamp_min(
+            ((pts - q[:, None, :]) ** 2).sum(-1), 0.0))
+    return torch.where(ok, d, _INF)
+
+
+# ---------------------------------------------------------------------------
+# c^2-k-ANN query (Alg. 5) on the vmap engine
+# ---------------------------------------------------------------------------
+
+def _auto_cap(n: int, params: LSHParams, cfg: QueryConfig,
+              forest: DEForest) -> int:
+    round_cap = params.L * min(cfg.M, forest.n_leaves) * forest.leaf_size
+    need = int(params.beta * n) + cfg.k
+    return max(cfg.cap, need + round_cap) if cfg.cap else need + round_cap
+
+
+def knn_query_lanes(data: torch.Tensor, forest: DEForest, A: torch.Tensor,
+                    params: LSHParams, queries: torch.Tensor,
+                    cfg: QueryConfig, *, live: Optional[torch.Tensor] = None,
+                    active: Optional[torch.Tensor] = None) -> QueryResult:
+    """Answer B c^2-k-ANN queries (Alg. 5), each on its own radius loop.
+
+    queries (B, d).  ``live`` is an optional (n,) bool tombstone mask;
+    ``active`` (B,) bool marks the lanes that run (False = done from round
+    0, as for pad lanes of a partial batch); None means all run.
+    """
+    n = data.shape[0]
+    B = queries.shape[0]
+    K, L = params.K, params.L
+    dev = queries.device
+    cap = _auto_cap(n, params, cfg, forest)
+    q_proj = (queries @ A).reshape(B, L, K).permute(1, 0, 2).contiguous()
+    thresh = torch.tensor(params.beta * n + cfg.k, dtype=torch.float32,
+                          device=dev)
+    rnd = torch.zeros((B,), dtype=torch.int32, device=dev)
+    r = torch.full((B,), cfg.r_min, dtype=torch.float32, device=dev)
+    cs = cand.init_state(n, cap, B, dev)
+    done = (torch.zeros((B,), dtype=torch.bool, device=dev) if active is None
+            else ~active.to(device=dev, dtype=torch.bool))
+    probed = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pcand = torch.zeros((B,), dtype=torch.int32, device=dev)
+    while True:
+        running = (~done) & (rnd < cfg.max_rounds)
+        if not bool(running.any()):                     # one sync a round
+            break
+        new_ids, ok, pl, pc = range_query_round(
+            forest, q_proj, params.epsilon * r, cfg.M, mode=cfg.mode,
+            bounds_impl=cfg.bounds_impl, live=live,
+            probe_depth=cfg.probe_depth, with_stats=True)      # line 5
+        ok = ok & running[:, None]              # stopped lanes merge nothing
+        new_d = exact_distances(data, queries, new_ids, ok,
+                                impl=cfg.dist_impl)
+        new_ids = torch.where(ok, new_ids, n)
+        cs = cand.merge_round(n, cs, new_ids, new_d)
+        t1 = cs.count.to(torch.float32) >= thresh              # line 7
+        within = (cs.dists <= params.c * r[:, None]).sum(1)
+        stop = t1 | (within >= cfg.k)                          # line 9
+        done = torch.where(running, stop, done)
+        r = torch.where(running & ~stop, r * params.c, r)      # line 11
+        rnd = rnd + running.to(torch.int32)
+        probed = probed + torch.where(running, pl, 0)
+        pcand = pcand + torch.where(running, pc, 0)
+
+    sel, dists = _topk_smallest(cs.dists, cfg.k)               # final rerank
+    return QueryResult(ids=torch.gather(cs.ids, 1, sel), dists=dists,
+                       rounds=rnd, n_candidates=cs.count, final_r=r,
+                       probed_leaves=probed, probe_candidates=pcand)
+
+
+def knn_query(data: torch.Tensor, forest: DEForest, A: torch.Tensor,
+              params: LSHParams, q: torch.Tensor, cfg: QueryConfig, *,
+              live: Optional[torch.Tensor] = None,
+              active: bool = True) -> QueryResult:
+    """Answer one c^2-k-ANN query (Alg. 5).  q: (d,).  ``active=False``
+    marks the lane done from round 0."""
+    res = knn_query_lanes(data, forest, A, params, q[None], cfg, live=live,
+                          active=torch.tensor([bool(active)]))
+    return QueryResult(*(f[0] for f in res))
+
+
+# ---------------------------------------------------------------------------
+# (r,c)-ANN query (Alg. 4) — single fixed radius
+# ---------------------------------------------------------------------------
+
+def rc_ann_query(data: torch.Tensor, forest: DEForest, A: torch.Tensor,
+                 params: LSHParams, q: torch.Tensor, r: float,
+                 cfg: QueryConfig) -> QueryResult:
+    """Answer one (r,c)-ANN query (Alg. 4): returns the closest candidate
+    found, or an invalid id (= n) when the algorithm would return nothing."""
+    n = data.shape[0]
+    dev = q.device
+    cap = _auto_cap(n, params, cfg, forest)
+    q_proj = (q @ A).reshape(params.L, 1, params.K)
+    r_proj = torch.tensor([params.epsilon * r], dtype=torch.float32,
+                          device=dev)
+    ids, ok = range_query_round(forest, q_proj, r_proj, cfg.M,
+                                mode=cfg.mode, bounds_impl=cfg.bounds_impl,
+                                probe_depth=cfg.probe_depth)
+    d = exact_distances(data, q[None], ids, ok, impl=cfg.dist_impl)
+    ids = torch.where(ok, ids, n)
+    cs = cand.merge_round(n, cand.init_state(n, cap, 1, dev), ids, d)
+    dists, count = cs.dists[0], cs.count[0]
+    best = torch.argmin(dists)
+    t1 = count >= int(params.beta * n + 1)                     # line 6
+    t2 = (dists <= params.c * r).sum() >= 1                    # line 8
+    give = t1 | t2
+    out_id = torch.where(give, cs.ids[0, best], n).to(torch.int32)
+    out_d = torch.where(give, dists[best], _INF)
+    return QueryResult(ids=out_id[None], dists=out_d[None],
+                       rounds=torch.tensor(1, dtype=torch.int32, device=dev),
+                       n_candidates=count,
+                       final_r=torch.tensor(r, dtype=torch.float32,
+                                            device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Fused batched engine
+# ---------------------------------------------------------------------------
 
 class FusedPlan(NamedTuple):
     """Per-index constants of the fused engine, computed once per forest.
@@ -128,18 +402,9 @@ def fused_round_update(best: torch.Tensor, by_id: torch.Tensor,
 def fused_topk(best: torch.Tensor, k: int, n: int) -> tuple[
         torch.Tensor, torch.Tensor, torch.Tensor]:
     """Final (ids, dists, unique-count) over the dense best-distance table.
-
-    Equal distances must come in ascending id order, the tie rule of the
-    reference's ``lax.top_k``; ``torch.topk`` promises no tie order.  So the
-    selection runs on unique int64 keys: a distance's f32 bit pattern (which
-    orders like the value for non-negative floats, +inf included) above its
-    id.  ``+ 0.0`` turns a -0.0 distance into +0.0 first."""
-    bits = (best + 0.0).view(torch.int32).to(torch.int64)
-    ids_all = torch.arange(n, dtype=torch.int64, device=best.device)
-    key = torch.topk(bits * (1 << 32) + ids_all, k, dim=1, largest=False,
-                     sorted=True).values
-    sel = key & 0xFFFFFFFF
-    dists = torch.gather(best, 1, sel)
+    Equal distances come in ascending id order, as the reference's
+    ``lax.top_k`` gives them."""
+    sel, dists = _topk_smallest(best, k)
     ids = torch.where(torch.isfinite(dists), sel.to(torch.int32), n)
     count = (best < float("inf")).sum(dim=1).to(torch.int32)
     return ids, dists, count
@@ -179,6 +444,7 @@ def fused_query_batch(data: torch.Tensor, forest: DEForest, A: torch.Tensor,
     q_proj = (queries @ A).reshape(B, L, K).permute(1, 0, 2).contiguous()
     thresh = torch.tensor(params.beta * n + cfg.k, dtype=torch.float32,
                           device=dev)
+    interpret = cfg.dist_impl == "pallas_interpret"
     nl, ls = forest.n_leaves, forest.leaf_size
 
     if cfg.probe_depth > 0:
@@ -203,7 +469,8 @@ def fused_query_batch(data: torch.Tensor, forest: DEForest, A: torch.Tensor,
         dmat = ops.range_rerank(
             queries, q_proj, r_adm, forest.leaf_lo, forest.leaf_hi,
             forest.leaf_valid, forest.breakpoints, plan.points_sorted,
-            forest.valid, live_sorted, leaf_size=ls)         # (L, B, n_pad)
+            forest.valid, live_sorted, leaf_size=ls,
+            interpret=interpret)                             # (L, B, n_pad)
         if cfg.probe_depth > 0:
             probed = probed + probe_mask.sum((0, 2)).to(torch.int32)
             per_leaf = torch.isfinite(dmat.reshape(L, B, nl, ls)).sum(-1)
@@ -230,11 +497,13 @@ _FUSED_MIN_BATCH = 8
 def _run_vmap_engine(data, forest, A, params, queries, cfg, *,
                      plan=None, live=None, live_sorted=None,
                      n_active=None) -> QueryResult:
-    """Registry entry point for engine='vmap' (not ported yet)."""
-    raise NotImplementedError(
-        "the per-query 'vmap' engine (core/candidates.py with the leaf_bounds "
-        "and l2_rerank kernels) is the next slice of the PyTorch port; use "
-        "engine='fused' (mode='leaf', any batch size) meanwhile")
+    """Registry entry point for engine='vmap' (ignores plan/live_sorted)."""
+    del plan, live_sorted
+    B = queries.shape[0]
+    active = (None if n_active is None
+              else torch.arange(B, device=queries.device) < int(n_active))
+    return knn_query_lanes(data, forest, A, params, queries, cfg, live=live,
+                           active=active)
 
 
 def _run_fused_engine(data, forest, A, params, queries, cfg, *,
@@ -251,8 +520,8 @@ def _run_fused_engine(data, forest, A, params, queries, cfg, *,
 engine_registry.register_engine(
     "vmap", _run_vmap_engine, modes=("leaf", "strict"), min_batch=1,
     priority=0,
-    doc="per-query engine; the only one reproducing the unoptimized strict "
-        "Alg. 3 per-point filter (raises until its slice of the port)")
+    doc="per-query radius loops, lanes batched; the only engine "
+        "reproducing the unoptimized strict Alg. 3 per-point filter")
 engine_registry.register_engine(
     "fused", _run_fused_engine, modes=("leaf",),
     min_batch=_FUSED_MIN_BATCH, priority=10,

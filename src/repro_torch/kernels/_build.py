@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("encode_pack", "range_rerank")
+KERNELS = ("encode_pack", "range_rerank", "leaf_bounds", "l2_rerank")
 
 
 def _nvcc() -> str:

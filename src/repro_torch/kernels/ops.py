@@ -2,7 +2,10 @@
 
 A CPU tensor goes to the plain version in ``kernels/ref.py``; a CUDA tensor
 goes to the hand-written kernel, whose wrapper launches it or raises.
-There is no fallback between the two.
+There is no fallback between the two.  ``interpret=True`` is what the
+reference's Pallas interpret mode means: the kernel's function without the
+kernel, so the plain version runs on either device.  Only a caller that
+asks for it (``impl='pallas_interpret'``) gets it.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build_fused as _bf
+from repro_torch.kernels import l2_rerank as _l2
+from repro_torch.kernels import leaf_bounds as _lb
 from repro_torch.kernels import range_rerank as _rr
 from repro_torch.kernels import ref as _ref
 
@@ -26,14 +31,15 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
-                L: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                 torch.Tensor]:
+                L: int, interpret: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
     """Fused encode + interleaved key-pack (build; see
     kernels/build_fused.py).  proj (n, L*K) -> (proj_t, codes_t, key_hi,
     key_lo) in the per-tree layouts."""
-    if _on_cuda(proj):
-        return _bf.encode_pack(proj, breakpoints, K=K, L=L)
-    return _ref.encode_pack(proj, breakpoints, K=K, L=L)
+    if interpret or not _on_cuda(proj):
+        return _ref.encode_pack(proj, breakpoints, K=K, L=L)
+    return _bf.encode_pack(proj, breakpoints, K=K, L=L)
 
 
 def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
@@ -41,7 +47,8 @@ def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
                  leaf_valid: torch.Tensor, breakpoints: torch.Tensor,
                  points: torch.Tensor, point_valid: torch.Tensor,
                  live: Optional[torch.Tensor] = None, *, leaf_size: int,
-                 probe_depth: int = 0) -> torch.Tensor:
+                 probe_depth: int = 0, interpret: bool = False
+                 ) -> torch.Tensor:
     """Fused batched range query + rerank; see kernels/range_rerank.py.
 
     ``r_eff`` is (B,) per-lane radii shared across trees, or (L, B)
@@ -55,7 +62,7 @@ def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
     if probe_depth and r_eff.ndim == 1:
         r_eff = _ref.probe_radii(q_proj, leaf_lo, leaf_hi, leaf_valid,
                                  breakpoints, r_eff, probe_depth)
-    if not _on_cuda(q):
+    if interpret or not _on_cuda(q):
         return _ref.range_rerank(q, q_proj, r_eff, leaf_lo, leaf_hi,
                                  leaf_valid, breakpoints, points, point_valid,
                                  live, leaf_size=leaf_size)
@@ -63,3 +70,29 @@ def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
     return _rr.range_rerank(q, q_proj, r_eff.expand(L, B), leaf_lo, leaf_hi,
                             leaf_valid, breakpoints, points, point_valid,
                             live, leaf_size=leaf_size)
+
+
+def leaf_bounds(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
+                leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
+                breakpoints: torch.Tensor, *, interpret: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fig. 5 leaf LB/UB for the whole forest; see kernels/leaf_bounds.py.
+    q_proj (L, B, K), leaf_lo/hi (L, nl, K) int16 (the forest's storage
+    dtype) -> (lb, ub) (L, B, nl)."""
+    if interpret or not _on_cuda(q_proj):
+        return _ref.leaf_bounds(q_proj, leaf_lo, leaf_hi, leaf_valid,
+                                breakpoints)
+    return _lb.leaf_bounds(q_proj.contiguous(), leaf_lo.contiguous(),
+                           leaf_hi.contiguous(), leaf_valid.contiguous(),
+                           breakpoints.contiguous())
+
+
+def l2_rerank(q: torch.Tensor, c: torch.Tensor, *,
+              interpret: bool = False) -> torch.Tensor:
+    """Exact L2 distances; see kernels/l2_rerank.py.  q (b, d), c (m, d) ->
+    (b, m), or with a group axis q (G, b, d), c (G, m, d) -> (G, b, m)."""
+    if interpret or not _on_cuda(q):
+        return _ref.l2_rerank(q, c)
+    if q.ndim == 2:
+        return _l2.l2_rerank(q.contiguous()[None], c.contiguous()[None])[0]
+    return _l2.l2_rerank(q.contiguous(), c.contiguous())

@@ -4,11 +4,12 @@
 the reference package, and ``chip_smoke.py`` holds each CUDA kernel
 against its plain version on the card.
 
-Leaf lower bounds accumulate the K clamped gaps in the order k = 0..K-1,
-one rounded product and one rounded sum per step, exactly as the CUDA
-``range_rerank`` kernel does (``__fadd_rn(acc, __fmul_rn(t, t))``), so the
-kernel and this version agree bit for bit on every LB and therefore on
-which leaves are admitted.
+Leaf lower and upper bounds accumulate the K per-dimension gaps in the
+order k = 0..K-1, one rounded product and one rounded sum per step, exactly
+as the CUDA ``range_rerank`` and ``leaf_bounds`` kernels do
+(``__fadd_rn(acc, __fmul_rn(t, t))``), so kernel and plain version agree
+bit for bit on every bound, on which leaves are admitted and on which M
+leaves a top-M cut fetches.
 """
 
 from __future__ import annotations
@@ -52,6 +53,32 @@ def _edge_coords(breakpoints: torch.Tensor, leaf_lo: torch.Tensor,
     return torch.gather(bp_t, -2, lo), torch.gather(bp_t, -2, hi)
 
 
+def _sum_in_k_order(x: torch.Tensor, b_lo: torch.Tensor, b_hi: torch.Tensor,
+                    gap) -> torch.Tensor:
+    """sqrt(sum_k gap(x_k, lo_k, hi_k)^2) over (L, B, nl), summed in the
+    order k = 0..K-1 with one rounded product and one rounded sum a step
+    (the CUDA kernels' ``__fadd_rn(acc, __fmul_rn(t, t))``).
+
+    x (L, B, K); b_lo/b_hi (L, nl, K) edge coordinates."""
+    L, B, K = x.shape
+    acc = torch.zeros((L, B, b_lo.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(K):                         # fixed order, no contraction
+        t = gap(x[:, :, None, k], b_lo[:, None, :, k], b_hi[:, None, :, k])
+        acc = acc + t * t
+    return torch.sqrt(acc)
+
+
+def _lb_gap(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+            ) -> torch.Tensor:
+    return torch.clamp_min(torch.maximum(lo - x, x - hi), 0.0)
+
+
+def _ub_gap(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+            ) -> torch.Tensor:
+    return torch.maximum((x - lo).abs(), (x - hi).abs())
+
+
 def forest_leaf_lb(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
                    leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
                    breakpoints: torch.Tensor) -> torch.Tensor:
@@ -61,15 +88,7 @@ def forest_leaf_lb(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
     breakpoints (L, K, E) -> (L, B, nl) f32, +inf for invalid leaves.
     """
     b_lo, b_hi = _edge_coords(breakpoints, leaf_lo, leaf_hi)   # (L, nl, K)
-    L, B, K = q_proj.shape
-    acc = torch.zeros((L, B, b_lo.shape[1]), dtype=torch.float32,
-                      device=q_proj.device)
-    for k in range(K):                         # fixed order, no contraction
-        q = q_proj[:, :, None, k]
-        t = torch.clamp_min(torch.maximum(b_lo[:, None, :, k] - q,
-                                          q - b_hi[:, None, :, k]), 0.0)
-        acc = acc + t * t
-    lb = torch.sqrt(acc)
+    lb = _sum_in_k_order(q_proj, b_lo, b_hi, _lb_gap)
     return torch.where(leaf_valid.to(torch.bool)[:, None, :], lb, _INF)
 
 
@@ -77,13 +96,23 @@ def leaf_bounds(q: torch.Tensor, leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
                 leaf_valid: torch.Tensor,
                 breakpoints: torch.Tensor) -> tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """Fig. 5 LB/UB.  q (K,), leaf_lo/hi (nl, K), bp (K, Nr+1) -> (nl,) each."""
-    lb = forest_leaf_lb(q[None, None, :], leaf_lo[None], leaf_hi[None],
-                        leaf_valid[None], breakpoints[None])[0, 0]
-    b_lo, b_hi = _edge_coords(breakpoints, leaf_lo, leaf_hi)
-    ub_dim = torch.maximum((q[None, :] - b_lo).abs(), (q[None, :] - b_hi).abs())
-    ub = torch.sqrt((ub_dim * ub_dim).sum(-1))
-    return lb, torch.where(leaf_valid.to(torch.bool), ub, _INF)
+    """Fig. 5 LB/UB distances from projected queries to leaf boxes.
+
+    Forest form: q (L, B, K), leaf_lo/hi (L, nl, K), leaf_valid (L, nl),
+    breakpoints (L, K, E) -> (lb, ub), each (L, B, nl).  Single-tree form
+    (a view of it): q (K,), leaf_lo/hi (nl, K), leaf_valid (nl,),
+    breakpoints (K, E) -> (nl,) each.  Invalid leaves get +inf.  Both sums
+    run in k order, so the CUDA ``leaf_bounds`` kernel matches bit for bit.
+    """
+    if q.ndim == 1:
+        lb, ub = leaf_bounds(q[None, None, :], leaf_lo[None], leaf_hi[None],
+                             leaf_valid[None], breakpoints[None])
+        return lb[0, 0], ub[0, 0]
+    b_lo, b_hi = _edge_coords(breakpoints, leaf_lo, leaf_hi)   # (L, nl, K)
+    valid = leaf_valid.to(torch.bool)[:, None, :]
+    lb = _sum_in_k_order(q, b_lo, b_hi, _lb_gap)
+    ub = _sum_in_k_order(q, b_lo, b_hi, _ub_gap)
+    return torch.where(valid, lb, _INF), torch.where(valid, ub, _INF)
 
 
 def probe_radii_from_lb(lb: torch.Tensor, r_eff: torch.Tensor,
@@ -123,10 +152,15 @@ def probe_radii(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
 
 
 def l2_rerank(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Exact Euclidean distances: q (b, d), c (m, d) -> (b, m)."""
-    qq = (q * q).sum(-1, keepdim=True)
-    cc = (c * c).sum(-1)[None, :]
-    qc = torch.matmul(q, c.T)
+    """Exact Euclidean distances, ``sqrt(max(qq - 2 q.c + cc, 0))``.
+
+    q (b, d), c (m, d) -> (b, m); or with a leading group axis q (G, b, d),
+    c (G, m, d) -> (G, b, m).  bf16 inputs are upcast to f32 first."""
+    q = q.to(torch.float32)
+    c = c.to(torch.float32)
+    qq = (q * q).sum(-1, keepdim=True)                         # (..., b, 1)
+    cc = (c * c).sum(-1)[..., None, :]                         # (..., 1, m)
+    qc = torch.matmul(q, c.transpose(-1, -2))
     return torch.sqrt(torch.clamp_min(qq - 2.0 * qc + cc, 0.0))
 
 

@@ -88,6 +88,25 @@ def test_range_rerank_kernel_matches_plain(cuda, probe_depth, n, B, ls, d):
     assert torch.isinf(got[:, 1]).all()
 
 
+@pytest.mark.parametrize("build_impl,encode_impl,launched", [
+    ("auto", "auto", True), ("pallas", "auto", True), ("auto", "pallas", True),
+    ("auto", "pallas_interpret", False), ("pallas_interpret", "auto", False),
+    ("xla", "auto", False)])
+def test_fused_builder_impl_names_pick_kernel_or_plain(cuda, build_impl,
+                                                       encode_impl, launched):
+    import repro_torch.api as api
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((2000, 16)).astype(np.float32)
+    spec = api.IndexSpec(K=4, L=2, build_impl=build_impl,
+                         encode_impl=encode_impl)
+    base = api.build(data, torch.Generator().manual_seed(0),
+                     api.IndexSpec(K=4, L=2), device=cuda)
+    before = build_fused.encode_pack.launches
+    idx = api.build(data, torch.Generator().manual_seed(0), spec, device=cuda)
+    assert (build_fused.encode_pack.launches > before) == launched
+    assert torch.equal(idx.forest.point_ids, base.forest.point_ids)
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     proj = torch.zeros((8, 8), device=cuda)
     with pytest.raises(TypeError):
@@ -95,3 +114,100 @@ def test_wrappers_refuse_bad_inputs(cuda):
                                 device=cuda), K=4, L=2)
     with pytest.raises(ValueError):
         build_fused.encode_pack(proj, torch.zeros((8, 5)), K=4, L=2)
+
+
+# ---------------------------------------------------------------------------
+# The vmap engine's kernels: leaf_bounds and l2_rerank
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nl,K,Nr", [(256, 4, 256), (300, 16, 64),
+                                     (17, 2, 16), (512, 8, 128)])
+def test_leaf_bounds_kernel_bit_identical(cuda, nl, K, Nr):
+    from repro_torch.kernels import leaf_bounds as lbk
+    rng = np.random.default_rng(nl + K)
+    L, B = 3, 37
+    bp = torch.tensor(np.sort(rng.standard_normal((L, K, Nr + 1)) * 3.0,
+                              axis=-1, kind="stable"),
+                      dtype=torch.float32, device=cuda)
+    lo = rng.integers(0, Nr, (L, nl, K))
+    hi = np.clip(lo + rng.integers(0, 8, (L, nl, K)), 0, Nr - 1)
+    lo = torch.tensor(lo, dtype=torch.int16, device=cuda)
+    hi = torch.tensor(hi, dtype=torch.int16, device=cuda)
+    valid = torch.tensor(rng.random((L, nl)) > 0.1, device=cuda)
+    q = torch.tensor(rng.standard_normal((L, B, K)) * 2.0,
+                     dtype=torch.float32, device=cuda)
+    before = lbk.leaf_bounds.launches
+    got = ops.leaf_bounds(q, lo, hi, valid, bp)
+    assert lbk.leaf_bounds.launches == before + 1
+    for g, w in zip(got, ref.leaf_bounds(q, lo, hi, valid, bp)):
+        assert torch.equal(g, w)                    # bit for bit, +inf too
+
+
+@pytest.mark.parametrize("b,m,d", [(128, 256, 128), (1, 1000, 64),
+                                   (20, 300, 420), (128, 256, 96),
+                                   (1, 2048, 128), (3, 70, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_rerank_kernel_matches_plain(cuda, b, m, d, dtype):
+    from repro_torch.kernels import l2_rerank as l2k
+    gen = torch.Generator(cuda).manual_seed(b + m + d)
+    G = 5
+    q = torch.randn((G, b, d), generator=gen, device=cuda).to(dtype)
+    c = torch.randn((G, m, d), generator=gen, device=cuda).to(dtype)
+    before = l2k.l2_rerank.launches
+    got = ops.l2_rerank(q, c)
+    flat = ops.l2_rerank(q[1], c[1])
+    assert l2k.l2_rerank.launches == before + 2
+    want = ref.l2_rerank(q, c)
+    assert got.dtype == torch.float32 and got.shape == (G, b, m)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+    else:
+        # qq - 2 q.c + cc cancels near zero: the error scales with |x|^2.
+        max_sq = float(torch.maximum((q * q).sum(-1).max(),
+                                     (c * c).sum(-1).max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * max_sq)
+    torch.testing.assert_close(flat, got[1], rtol=0, atol=0)
+
+
+def test_vmap_engine_on_the_card_matches_plain_versions(cuda):
+    import repro_torch.api as api
+    from repro_torch.kernels import l2_rerank as l2k
+    from repro_torch.kernels import leaf_bounds as lbk
+    rng = np.random.default_rng(3)
+    data = rng.standard_normal((4000, 32)).astype(np.float32)
+    q = data[:7] + 0.05 * rng.standard_normal((7, 32)).astype(np.float32)
+    idx = api.build(data, torch.Generator().manual_seed(0),
+                    api.IndexSpec(K=8, L=3, leaf_size=32), device=cuda)
+    for mode in ("leaf", "strict"):
+        lb0, l20 = lbk.leaf_bounds.launches, l2k.l2_rerank.launches
+        kern = idx.search(q, api.SearchRequest(
+            k=10, r_min=0.3, engine="auto", mode=mode, bounds_impl="pallas",
+            dist_impl="pallas"))
+        assert kern.stats.engine == "vmap"
+        assert lbk.leaf_bounds.launches > lb0 and l2k.l2_rerank.launches > l20
+        lb0, l20 = lbk.leaf_bounds.launches, l2k.l2_rerank.launches
+        plain = idx.search(q, api.SearchRequest(
+            k=10, r_min=0.3, engine="auto", mode=mode,
+            bounds_impl="pallas_interpret", dist_impl="pallas_interpret"))
+        assert (lbk.leaf_bounds.launches, l2k.l2_rerank.launches) == (lb0, l20)
+        assert torch.equal(kern.ids, plain.ids)
+        assert torch.equal(kern.stats.rounds, plain.stats.rounds)
+        assert torch.equal(kern.stats.n_candidates, plain.stats.n_candidates)
+        torch.testing.assert_close(kern.dists, plain.dists, rtol=1e-4,
+                                   atol=1e-4 * float((idx.data ** 2).sum(
+                                       -1).max()))
+
+
+def test_vmap_wrappers_refuse_bad_inputs(cuda):
+    from repro_torch.kernels import l2_rerank as l2k
+    from repro_torch.kernels import leaf_bounds as lbk
+    q = torch.zeros((2, 3, 4), device=cuda)
+    lo = torch.zeros((2, 5, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int16"):
+        lbk.leaf_bounds(q, lo, lo, torch.ones((2, 5), dtype=torch.bool,
+                                              device=cuda),
+                        torch.zeros((2, 4, 9), device=cuda))
+    with pytest.raises(TypeError):
+        l2k.l2_rerank(q.double(), q.double())
+    with pytest.raises(ValueError):
+        l2k.l2_rerank(q, q.cpu())

@@ -77,17 +77,21 @@ def test_reference_snapshot_searched_by_the_port(tmp_path, K, L,
     assert int(got.stats.rounds.max()) >= 1
 
 
-def test_reference_arrays_through_from_arrays():
-    data, q = _dataset(seed=1)
-    jidx = _jax_index(data, 16, 4)
+def _arrays_of(jidx):
     arrays = {"A": np.asarray(jidx.A), "data": np.asarray(jidx.data)}
     arrays.update({"forest." + k: np.asarray(getattr(jidx.forest, k))
                    for k in ("point_ids", "proj_sorted", "codes_sorted",
                              "valid", "leaf_lo", "leaf_hi", "leaf_valid",
                              "breakpoints")})
+    return arrays
+
+
+def test_reference_arrays_through_from_arrays():
+    data, q = _dataset(seed=1)
+    jidx = _jax_index(data, 16, 4)
     from repro_torch.core.theory import LSHParams
     tidx = DETLSH.from_arrays(
-        arrays, LSHParams(**dataclasses.asdict(jidx.params)),
+        _arrays_of(jidx), LSHParams(**dataclasses.asdict(jidx.params)),
         n=jidx.forest.n, leaf_size=jidx.forest.leaf_size, device="cpu")
     # r_min=None on both: the host-side estimate is the same numpy code.
     want = jidx.search(jnp.asarray(q), japi.SearchRequest(k=10,
@@ -175,11 +179,54 @@ def test_resolve_engine_agrees_with_reference():
                                         dict(engine="auto"),
                                         dict(engine="fused", mode="strict")])
 def test_vmap_engine_raises_until_ported(request_kw):
+    """Each request resolves to the vmap engine at batch 4 (strict falls
+    back to it), which is ported: the port answers as the reference does."""
     data, q = _dataset(seed=5, n=512, nq=4)     # batch 4 < fused min_batch
-    idx = tapi.build(data, None, tapi.IndexSpec(K=4, L=2, leaf_size=32),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        idx.search(q, tapi.SearchRequest(k=5, r_min=0.5, **request_kw))
+    jidx = japi.build(jnp.asarray(data), jax.random.key(0), japi.IndexSpec(
+        K=4, L=2, leaf_size=32))
+    from repro_torch.core.theory import LSHParams
+    tidx = DETLSH.from_arrays(_arrays_of(jidx),
+                              LSHParams(**dataclasses.asdict(jidx.params)),
+                              n=512, leaf_size=32, device="cpu")
+    want = jidx.search(jnp.asarray(q), japi.SearchRequest(k=5, r_min=0.5,
+                                                          **request_kw))
+    got = tidx.search(q, tapi.SearchRequest(k=5, r_min=0.5, **request_kw))
+    assert got.stats.engine == want.stats.engine == "vmap"
+    _assert_same_answers(want, got, data)
+
+
+def test_unported_kernels_refused_at_build(tmp_path):
+    data, q = _dataset(seed=12, n=256, nq=2)
+    for spec in (tapi.IndexSpec(K=4, L=2, project_impl="pallas"),
+                 tapi.IndexSpec(K=4, L=2, project_impl="pallas_interpret")):
+        with pytest.raises(NotImplementedError, match="lsh_project"):
+            tapi.build(data, None, spec, device="cpu")
+    # A snapshot with such a spec still loads: nothing is projected at load.
+    jspec = japi.IndexSpec(K=4, L=2, project_impl="pallas")
+    japi.build(jnp.asarray(data), jax.random.key(0), jspec).save(
+        str(tmp_path / "snap"))
+    loaded = tapi.load(tmp_path / "snap", device="cpu")
+    assert loaded.spec.project_impl == "pallas"
+    assert loaded.search(q, tapi.SearchRequest(k=3, r_min=0.5)).ids.shape \
+        == (2, 3)
+
+
+def test_reference_builder_with_pallas_encode_refused():
+    data, _ = _dataset(seed=13, n=256, nq=1)
+    for impl in ("pallas", "pallas_interpret"):
+        spec = tapi.IndexSpec(K=4, L=2, build_impl="reference",
+                              encode_impl=impl)
+        with pytest.raises(NotImplementedError, match="encode_bins"):
+            tapi.build(data, None, spec, device="cpu")
+    # The fused builder runs the ported encode_pack for every impl name:
+    # the kernel ('auto'/'pallas') or its plain version ('xla'/
+    # 'pallas_interpret'), which are the same function on the CPU.
+    base = tapi.build(data, None, tapi.IndexSpec(K=4, L=2), device="cpu")
+    for impl in ("pallas", "pallas_interpret", "xla"):
+        other = tapi.build(data, None, tapi.IndexSpec(K=4, L=2,
+                                                      encode_impl=impl),
+                           device="cpu")
+        assert torch.equal(other.forest.point_ids, base.forest.point_ids)
 
 
 # ---------------------------------------------------------------------------
