@@ -47,6 +47,27 @@ Phases, each printed as one line; any failure exits non-zero:
              inv_perm fold, T1/T2 update) and of the final top-k.
   persist    save -> load(device='cuda') -> search gives bit-identical ids
              and distances, on the fused and on the vmap request.
+  project_encode_pack  the streaming seal's kernel against its plain version
+             on the main path's rows (n = 1M x 128, K=16/L=4 and K=4/L=16)
+             and at the seal shape (16,384 rows): all four outputs
+             bit-identical; CUDA-event times, and the unfused pair
+             (torch.matmul, then the encode_pack kernel) as a yardstick.
+  streaming_path  a streaming index at SIFT1M's shape through
+             repro_torch.api.build(IndexSpec(kind='streaming', ...,
+             delta_capacity=16384, max_segments=4)): 4 x 16,384 upserted rows
+             seal four times through project_encode_pack (its count must
+             move by exactly 4), 2,000 more stay in the delta (1,000 of them
+             overwrite base gids), 10,000 gids are deleted across base, sealed
+             segments and delta.  Fused (B=100), vmap (B=100, pallas impls)
+             and auto (B=7) searches, each at the estimated r_min and again
+             started at the survivors' true k-NN scale / c^2 (some lane must
+             run >= 2 rounds), each held lane by lane against
+             'pallas_interpret'; the fused search at r_min=1e6 equal to brute
+             force over the survivors (distance ties excused and counted);
+             then maybe_compact() (5 segments > 4) and the same checks again;
+             then save -> load(device='cuda'): the same state_digest and
+             bit-identical searches.  Seal, upsert, delete, compaction and
+             warm search times, recall@50 and the c^2 rate.
 
 Then one JSON line per the kernel table (time, plain time, launches on the
 path that runs the kernel, least possible time from bytes and operations,
@@ -650,6 +671,305 @@ def check_persist(torch, index, queries, searches) -> None:
          load_seconds=load_s)
 
 
+def check_project_encode_pack(torch, x, K: int, L: int, Nr: int,
+                              case: str) -> dict:
+    """The seal's kernel against its plain version on rows ``x`` (n, d) of
+    the card: all four outputs bit-identical (the projection is summed in
+    the same d order).  The unfused pair, torch.matmul then the
+    encode_pack kernel, is timed beside it as a yardstick."""
+    from repro_torch.core.encoding import breakpoints_sample_sort
+    from repro_torch.kernels import build_fused, ref
+    n, d = x.shape
+    D = L * K
+    gen = torch.Generator(device="cuda").manual_seed(K * 100 + L + 7)
+    a = torch.randn((d, D), generator=gen, device="cuda")
+    bp = breakpoints_sample_sort(x @ a, Nr)
+    got = build_fused.project_encode_pack(x, a, bp, K=K, L=L)
+    want = ref.project_encode_pack(x, a, bp, K=K, L=L)
+    max_err = 0.0
+    for name, g, w in zip(("proj_t", "codes_t", "key_hi", "key_lo"), got,
+                          want):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"project_encode_pack {case}: {name} has another dtype or "
+                f"shape")
+        max_err = max(max_err, float((g.double() - w.double()).abs().max()))
+        require(torch.equal(g, w),
+                f"project_encode_pack {case}: {name} differs from the plain "
+                f"version (max err {max_err})")
+    del got, want
+    ms = time_ms(torch, lambda: build_fused.project_encode_pack(
+        x, a, bp, K=K, L=L))
+    plain = time_ms(torch, lambda: ref.project_encode_pack(x, a, bp, K=K,
+                                                           L=L),
+                    warmup=1, reps=3)
+    unfused = time_ms(torch, lambda: build_fused.encode_pack(
+        torch.matmul(x, a), bp, K=K, L=L))
+    nbytes = (4 * n * d + 4 * d * D + 4 * D * (Nr + 1) + (4 + 4) * n * D
+              + 2 * 8 * L * n)
+    flops = 2 * n * d * D + n * D * math.ceil(math.log2(Nr))
+    bms, by = bound_ms(nbytes, flops)
+    out = dict(case=case, n=n, d=d, K=K, L=L, bit_identical=True,
+               max_abs_err=max_err, ms=ms, plain_ms=plain, unfused_ms=unfused,
+               bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+    line("project_encode_pack", **out)
+    return out
+
+
+def _kernel_wrappers() -> dict:
+    """Every kernel wrapper by name; each carries its ``launches`` count."""
+    from repro_torch.kernels import build_fused, l2_rerank, leaf_bounds
+    from repro_torch.kernels import range_rerank
+    return {"encode_pack": build_fused.encode_pack,
+            "project_encode_pack": build_fused.project_encode_pack,
+            "range_rerank": range_rerank.range_rerank,
+            "leaf_bounds": leaf_bounds.leaf_bounds,
+            "l2_rerank": l2_rerank.l2_rerank}
+
+
+def _stream_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+
+
+def _reset_counts() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def saturating_check(torch, index, queries, k: int, c: float,
+                     max_sq: float) -> dict:
+    """The fused search at r_min = 1e6 admits every leaf of every segment,
+    so it must return the exact top-k over the survivors (tombstones, gid
+    maps, the delta and the combine together): ids equal to brute force on
+    the card, except where a distance tie at the k-th place swaps an id
+    (counted), and distances within 1e-4 * |d| + 1e-4 * max|x|^2."""
+    import repro_torch.api as api
+    from repro_torch.baselines.brute_force import BruteForce
+    vecs, gids = index._survivors()
+    surv = torch.tensor(vecs, device="cuda")
+    gt_pos, gt_d = BruteForce(surv).query(queries, k)
+    del surv
+    gt_ids = torch.tensor(gids, device="cuda")[gt_pos]
+    res = index.search(queries, api.SearchRequest(k=k, engine="fused",
+                                                  r_min=1e6))
+    got_d = res.dists.double()
+    want_d = gt_d.double()
+    tol = 1e-4 * want_d.abs() + 1e-4 * max_sq
+    require(bool(((got_d - want_d).abs() <= tol).all()),
+            f"saturating search: distances differ from brute force by "
+            f"{float((got_d - want_d).abs().max())}")
+    excused = 0
+    for b in range(queries.shape[0]):
+        got_set = set(res.ids[b].tolist())
+        want_set = set(gt_ids[b].tolist())
+        if got_set == want_set:
+            continue
+        kth = float(want_d[b, -1])
+        for pos in range(k):
+            if int(res.ids[b, pos]) not in want_set:
+                require(abs(float(got_d[b, pos]) - kth)
+                        <= 1e-4 * kth + 1e-4 * max_sq,
+                        f"saturating search: lane {b} returns a point that "
+                        f"is not among the survivors' top-{k}")
+        excused += 1
+    return dict(gt_ids=gt_ids, gt_d=gt_d, lanes_excused_at_a_tie=excused)
+
+
+def streaming_path(torch, n: int) -> dict:
+    """The streaming index at SIFT1M's shape under ~7% churn, through the
+    entry points a user calls; every search held against its plain run."""
+    import repro_torch.api as api
+    from repro_torch import datasets
+    from repro_torch.core.theory import SUCCESS_PROBABILITY
+    cap, n_seals = 16384, 4
+    data = datasets.sift_like(n, 128, seed=0)
+    new = datasets.sift_like(n_seals * cap + 1000, 128, seed=2)
+    spec = api.IndexSpec(kind="streaming", K=16, L=4, c=1.5,
+                         beta_override=0.1, Nr=256, leaf_size=64,
+                         delta_capacity=cap, max_segments=4)
+    c = spec.c
+    max_sq = float(max((data * data).sum(-1).max(), (new * new).sum(-1).max()))
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = api.build(data, torch.Generator().manual_seed(0), spec,
+                      device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    # One delta's worth of rows per upsert call, so each call seals once
+    # and its stages are read from last_seal_seconds right after.
+    seal_stages, upsert_s, gids_new = [], 0.0, []
+    for i in range(n_seals):
+        t0 = time.perf_counter()
+        gids_new.append(index.upsert(new[i * cap:(i + 1) * cap]))
+        torch.cuda.synchronize()
+        upsert_s += time.perf_counter() - t0
+        seal_stages.append(index.last_seal_seconds)
+    gids_new = np.concatenate(gids_new)
+    seals = _stream_counts()["project_encode_pack"]
+    require(seals == n_seals
+            and len({id(s) for s in seal_stages}) == n_seals,
+            f"{n_seals} seals launched project_encode_pack {seals} times")
+    require(len(index.manifest.segments) == 1 + n_seals
+            and index.memtable.count == 0, "the upserts did not seal 4 times")
+
+    rng = np.random.default_rng(3)
+    over = rng.choice(n, 1000, replace=False)         # base gids overwritten
+    fresh = np.arange(index.next_gid, index.next_gid + 1000)
+    delta_gids = np.concatenate([over, fresh])
+    delta_vecs = np.concatenate([data[over] + 0.01, new[n_seals * cap:]])
+    t0 = time.perf_counter()
+    index.upsert(delta_vecs.astype(np.float32), gids=delta_gids)
+    torch.cuda.synchronize()
+    upsert2_s = time.perf_counter() - t0
+    require(index.memtable.count == 2000 and index.memtable.n_live == 2000,
+            "2,000 upserts must stay in the delta")
+    keep_base = np.setdiff1d(np.arange(n), over)
+    doomed = np.concatenate([rng.choice(keep_base, 7000, replace=False),
+                             rng.choice(gids_new, 2500, replace=False),
+                             rng.choice(delta_gids, 500, replace=False)])
+    t0 = time.perf_counter()
+    deleted = index.delete(doomed)
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    require(deleted == 10000, f"deleted {deleted} of 10,000 gids")
+    require(all(s.has_tombstones for s in index.manifest.segments)
+            and index.memtable.n_live == 1500,
+            "tombstones must sit in every segment and in the delta")
+
+    queries = torch.tensor(datasets.perturbed_queries(
+        np.concatenate([data, new]), 100, seed=5), device="cuda")
+    kern = dict(bounds_impl="pallas", dist_impl="pallas")
+    plain_impl = dict(bounds_impl="pallas_interpret",
+                      dist_impl="pallas_interpret")
+
+    def requests(**r_min) -> dict:
+        return {"fused_B100": (queries, api.SearchRequest(
+                    k=50, engine="fused", **r_min)),
+                "vmap_B100": (queries, api.SearchRequest(
+                    k=50, engine="vmap", **kern, **r_min)),
+                "auto_B7": (queries[:7], api.SearchRequest(
+                    k=50, engine="auto", **kern, **r_min))}
+
+    def held(stage: str, runs: dict) -> dict:
+        out = {}
+        for name, (qs, req) in runs.items():
+            got = index.search(qs, req)
+            before = _stream_counts()
+            plain = index.search(qs, dataclasses.replace(req, **plain_impl))
+            require(_stream_counts() == before,
+                    f"{stage} {name}: pallas_interpret launched a kernel")
+            want_engine = "fused" if "fused" in name else "vmap"
+            require(got.stats.engine == want_engine,
+                    f"{stage} {name}: ran {got.stats.engine}")
+            out[name] = dict(
+                result=got,
+                excused=held_against_plain(f"{stage} {name}", got, plain, c,
+                                           max_sq))
+        return out
+
+    def quality(res, gt_ids, gt_d, n_q: int) -> dict:
+        hits = (res.ids.to(torch.int64)[:, :, None]
+                == gt_ids[:n_q, None, :]).any(-1).sum(-1)
+        rate = (res.dists <= c * c * gt_d[:n_q] + 1e-4).all(dim=1)
+        return dict(recall_at_50=float(hits.float().mean()) / 50,
+                    c2_guarantee_rate=float(rate.float().mean()),
+                    rounds_mean=float(res.stats.rounds.float().mean()),
+                    rounds_max=int(res.stats.rounds.max()),
+                    n_candidates_mean=float(
+                        res.stats.n_candidates.float().mean()))
+
+    stages = {}
+    for stage in ("churned", "compacted"):
+        if stage == "compacted":
+            t0 = time.perf_counter()
+            require(index.maybe_compact(), "maybe_compact did not compact "
+                    "5 segments > max_segments = 4")
+            torch.cuda.synchronize()
+            compact_s = time.perf_counter() - t0
+            require(len(index.manifest.segments) == 1
+                    and not index.manifest.segments[0].has_tombstones,
+                    "compaction left tombstones or several segments")
+        sat = saturating_check(torch, index, queries, 50, c, max_sq)
+        # The estimated r_min overshoots at n = 1M and every lane stops in
+        # round 1; started at the survivors' k-NN scale / c^2 the lanes run
+        # several rounds (tombstoned rows across rounds, radius growth per
+        # segment, T2 over the combined sources).
+        r_scale = float(sat["gt_d"][:, -1].median()) / (c * c)
+        runs = {**requests(),
+                **{f"{name}_scaled": run for name, run
+                   in requests(r_min=r_scale).items()}}
+        searches = held(stage, runs)
+        quality_of = {name: quality(v["result"], sat["gt_ids"], sat["gt_d"],
+                                    runs[name][0].shape[0])
+                      for name, v in searches.items()}
+        for name in ("fused_B100", "fused_B100_scaled"):
+            require(quality_of[name]["c2_guarantee_rate"]
+                    >= SUCCESS_PROBABILITY,
+                    f"{stage} {name}: the c^2 guarantee rate fell below "
+                    f"the bound")
+        for name in runs:
+            if name.endswith("_scaled"):
+                require(quality_of[name]["rounds_max"] >= 2,
+                        f"{stage} {name}: no lane ran a second round at "
+                        f"r_min={r_scale}")
+        warm = {name: host_ms(torch, lambda qs=qs, req=req:
+                              index.search(qs, req))
+                for name, (qs, req) in runs.items()}
+        stages[stage] = dict(
+            segments=len(index.manifest.segments),
+            n_live=index.n_live,
+            lanes_excused_at_a_tie={k: v["excused"]
+                                    for k, v in searches.items()},
+            saturating_lanes_excused_at_a_tie=sat["lanes_excused_at_a_tie"],
+            warm_ms=warm, quality=quality_of,
+            r_min=searches["fused_B100"]["result"].stats.r_min,
+            r_min_scaled=r_scale)
+        del searches, sat
+
+    digest = index.state_digest()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "streaming")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = api.load(path, device="cuda")
+        load_s = time.perf_counter() - t0
+    require(loaded.state_digest() == digest,
+            "save -> load changed the state_digest")
+    for name, (qs, req) in runs.items():
+        a, b = index.search(qs, req), loaded.search(qs, req)
+        require(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
+                f"save -> load -> search ({name}) is not bit-identical")
+    del loaded
+    launches = _stream_counts()
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the streaming path never launched: {launches}")
+    require(launches["project_encode_pack"] == n_seals,
+            "project_encode_pack launches differ from the number of seals")
+
+    seal_total = [s["total"] for s in seal_stages]
+    seal_kernel = [s["project_encode_pack"] for s in seal_stages]
+    out = dict(n=n, d=128, delta_capacity=cap, seals=len(seal_total),
+               build_seconds=build_s, build_stages=index.build_seconds,
+               seal_ms_median=statistics.median(seal_total) * 1e3,
+               seal_ms=[t * 1e3 for t in seal_total],
+               seal_kernel_share_median=statistics.median(
+                   k / t for k, t in zip(seal_kernel, seal_total)),
+               seal_stages_ms={k: v * 1e3
+                               for k, v in seal_stages[-1].items()},
+               upsert_rows_per_s=n_seals * cap / upsert_s,
+               upsert_delta_rows_per_s=2000 / upsert2_s,
+               delete_ms=delete_ms, compact_seconds=compact_s,
+               save_seconds=save_s, load_seconds=load_s,
+               digest_equal=True, stages=stages, launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    line("streaming_path", **out)
+    return out
+
+
 def main() -> int:
     n = 1_000_000                   # SIFT1M's size, for every phase
     import torch
@@ -689,6 +1009,14 @@ def main() -> int:
                              timed=False)
     search_breakdown(torch, index, queries, res.stats.final_r, req.k)
     check_persist(torch, index, queries, [(res, req), (vres, vreq)])
+    pep = [check_project_encode_pack(torch, index.data, 16, 4, 256, "n=1M"),
+           check_project_encode_pack(torch, index.data, 4, 16, 256,
+                                     "n=1M K=4"),
+           check_project_encode_pack(torch, index.data[:16384].contiguous(),
+                                     16, 4, 256, "seal")]
+    del index, queries, res, vres
+    torch.cuda.empty_cache()
+    stream = streaming_path(torch, n)
 
     print(json.dumps({"kernels": [
         {"name": "encode_pack", "route": "cuda",
@@ -723,6 +1051,14 @@ def main() -> int:
          "ms": l2["ms"], "plain_ms": l2["plain_ms"],
          "bound_ms": l2["bound_ms"], "bound_by": l2["bound_by"],
          "library_ms": l2["library_ms"]},
+        {"name": "project_encode_pack", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/project_encode_pack.cu",
+         "replaces": "src/repro/kernels/build_fused.py:128",
+         "launches": stream["launches"]["project_encode_pack"],
+         "max_abs_err": max(p["max_abs_err"] for p in pep),
+         "ms": pep[0]["ms"], "plain_ms": pep[0]["plain_ms"],
+         "bound_ms": pep[0]["bound_ms"], "bound_by": pep[0]["bound_by"],
+         "library_ms": None},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 H100 (sm_90a).
 
 The port of the JAX package ``repro``, slice by slice; it imports neither
-JAX nor ``repro``.  This slice carries the static DET-LSH build and the
-fused c^2-k-ANN search (``repro_torch.api``: ``IndexSpec`` -> ``build`` ->
-``search`` -> ``save``/``load``).  Entry points run on CUDA unless given
-``device=``.
+JAX nor ``repro``.  It carries the static DET-LSH build, both c^2-k-ANN
+engines (fused and per-query) and the streaming mutable index
+(``repro_torch.api``: ``IndexSpec`` -> ``build`` -> ``search`` ->
+``save``/``load``; ``upsert``/``delete``/``maybe_compact`` on the
+streaming kind).  Entry points run on CUDA unless given ``device=``.
 
-Subpackages: core, kernels, api, baselines.
+Subpackages: core, kernels, api, baselines, streaming.
 """

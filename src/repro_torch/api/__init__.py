@@ -36,18 +36,19 @@ def build(data: Any, generator: Any = None, spec: Optional[IndexSpec] = None,
           *, device: Optional[Any] = None) -> Any:
     """Build an index from an ``IndexSpec`` on ``device``.
 
-    The static kind builds a ``core.DETLSH``.  The streaming kind and a
-    ``placement`` (the sharded PDET index) are later slices of the port.
+    The static kind builds a ``core.DETLSH``, the streaming kind a
+    ``streaming.StreamingDETLSH``.  A ``placement`` (the sharded PDET
+    index) is a later slice of the port.
     """
     spec = spec or IndexSpec()
     if spec.placement is not None:
         raise NotImplementedError(
             "IndexSpec.placement (the sharded PDET index) is not ported to "
             "PyTorch yet; build without a placement")
-    if spec.kind != "static":
-        raise NotImplementedError(
-            f"kind={spec.kind!r} is not ported to PyTorch yet; the port "
-            f"builds kind='static'")
+    if spec.kind == "streaming":
+        from repro_torch.streaming import StreamingDETLSH
+        return StreamingDETLSH.from_spec(data, generator, spec,
+                                         device=device)
     from repro_torch.core import DETLSH
     return DETLSH.from_spec(data, generator, spec, device=device)
 

@@ -1,19 +1,25 @@
 """Snapshot persistence: ``index.save(path)`` / ``repro_torch.api.load(path)``.
 
-The reference package's snapshot format, version 3, for the static kind:
+The reference package's snapshot format, version 3, for the static and
+the streaming kinds:
 
     <path>/
-      MANIFEST.json   format + version, kind, LSHParams, IndexSpec, forest
-                      statics, cached r_min estimates, per-file sha256 digests
-      arrays.npz      A, data, forest.<key> DE-Forest arrays
-      plan.npz        (optional) plan.points_sorted, plan.inv_perm
+      MANIFEST.json     format + version, kind, LSHParams, IndexSpec, static
+                        shapes, the segment catalog (streaming), cached
+                        r_min estimates, per-file sha256 digests
+      arrays.npz        (static) A, data, forest.<key> DE-Forest arrays
+      plan.npz          (static, optional) plan.points_sorted, plan.inv_perm
+      common.npz        (streaming) A, frozen breakpoints bp_all
+      segment_<id>.npz  (streaming) rows, gids, tombstones, forest
+                        [+ fused-plan constants when materialized]
+      memtable.npz      (streaming) delta rows / gids / live bitmap
 
 A snapshot written by either package loads in the other and answers
 identically.  Saves are atomic (files staged into a temp sibling
 directory, fsynced and published with ``os.replace``) and every file is
 checked against its recorded digest on load (``SnapshotIntegrityError``).
-Streaming and sharded (pdet) snapshots, and the pre-digest versions 1-2,
-raise ``NotImplementedError`` in this slice of the port.
+Sharded (pdet) snapshots, and the pre-digest versions 1-2, raise
+``NotImplementedError`` in this slice of the port.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 
 FORMAT_NAME = "repro-ann-snapshot"
 FORMAT_VERSION = 3
-_NOT_YET_KINDS = ("streaming", "pdet")
+_NOT_YET_KINDS = ("pdet",)
 
 
 class SnapshotFormatError(ValueError):
@@ -236,18 +242,32 @@ def _params_from(manifest: dict, where: str) -> Any:
             f"({type(exc).__name__}: {exc})") from exc
 
 
+def _rmin_dump(cache: dict) -> dict:
+    return {str(k): float(v) for k, v in cache.items()}
+
+
+def _rmin_load(d: Any) -> dict:
+    return {int(k): float(v) for k, v in (d or {}).items()}
+
+
+def _forest_arrays(forest: Any) -> dict:
+    from repro_torch.core import FOREST_DTYPES
+    return {"forest." + k: _np(getattr(forest, k)) for k in FOREST_DTYPES}
+
+
+def _plan_arrays(plan: Any) -> dict:
+    return {"plan.points_sorted": _np(plan.points_sorted),
+            "plan.inv_perm": _np(plan.inv_perm)}
+
+
 def save_static(index: Any, path: str) -> None:
     """Snapshot a ``core.DETLSH``: A, data, forest, fused-plan constants."""
-    from repro_torch.core import FOREST_DTYPES
     arrays = {"A": _np(index.A), "data": _np(index.data)}
-    arrays.update({"forest." + k: _np(getattr(index.forest, k))
-                   for k in FOREST_DTYPES})
+    arrays.update(_forest_arrays(index.forest))
     files = {"arrays.npz": _npz_bytes(arrays)}
     has_plan = index._plan is not None
     if has_plan:
-        files["plan.npz"] = _npz_bytes(
-            {"plan.points_sorted": _np(index._plan.points_sorted),
-             "plan.inv_perm": _np(index._plan.inv_perm)})
+        files["plan.npz"] = _npz_bytes(_plan_arrays(index._plan))
     _publish_snapshot(path, files, {
         "format": FORMAT_NAME,
         "format_version": FORMAT_VERSION,
@@ -256,8 +276,7 @@ def save_static(index: Any, path: str) -> None:
         "forest": {"n": index.forest.n, "leaf_size": index.forest.leaf_size},
         "spec": index.spec.to_dict() if index.spec is not None else None,
         "has_plan": has_plan,
-        "r_min_cache": {str(k): float(v)
-                        for k, v in index._r_min_cache.items()},
+        "r_min_cache": _rmin_dump(index._r_min_cache),
     })
 
 
@@ -275,8 +294,125 @@ def _load_static(path: str, manifest: dict, device: Any) -> Any:
         leaf_size=_field(fmeta, "leaf_size", int, path),
         spec=IndexSpec.from_dict(spec) if spec is not None else None,
         device=device)
-    index._r_min_cache.update({int(k): float(v) for k, v in
-                               (manifest.get("r_min_cache") or {}).items()})
+    index._r_min_cache.update(_rmin_load(manifest.get("r_min_cache")))
+    return index
+
+
+def save_streaming(index: Any, path: str) -> None:
+    """Snapshot a ``streaming.StreamingDETLSH``: segments (with tombstone
+    bitmaps), memtable survivors, frozen breakpoints, and the manifest —
+    a restart resumes serving (and mutating) exactly where it left off."""
+    files = {"common.npz": _npz_bytes({"A": _np(index.A),
+                                       "bp_all": _np(index.bp_all)})}
+    seg_entries = []
+    for seg in index.manifest.segments:
+        fname = f"segment_{seg.seg_id:06d}.npz"
+        arrays = {"data": _np(seg.data), "gids": np.asarray(seg.gids),
+                  "live": np.asarray(seg.live)}
+        arrays.update(_forest_arrays(seg.forest))
+        has_plan = seg._plan is not None
+        if has_plan:
+            arrays.update(_plan_arrays(seg._plan))
+        files[fname] = _npz_bytes(arrays)
+        seg_entries.append({
+            "seg_id": seg.seg_id, "file": fname,
+            "clip_fraction": seg.clip_fraction,
+            "forest": {"n": seg.forest.n,
+                       "leaf_size": seg.forest.leaf_size},
+            "has_plan": has_plan,
+        })
+    mt = index.memtable
+    files["memtable.npz"] = _npz_bytes(
+        {"vecs": mt.vecs, "gids": mt.gids, "live": mt.live})
+    # Only persist the r_min cache when it is current for this structure —
+    # a stale (pre-mutation) cache must not be resurrected as fresh.
+    rmin_tag, rmin_entries = index._rmin_cache
+    if rmin_tag != (index.manifest.version, mt.version):
+        rmin_entries = {}
+    _publish_snapshot(path, files, {
+        "format": FORMAT_NAME,
+        "format_version": FORMAT_VERSION,
+        "kind": "streaming",
+        "params": dataclasses.asdict(index.params),
+        "Nr": index.Nr, "leaf_size": index.leaf_size,
+        "max_segments": index.max_segments,
+        "id_capacity": index.id_capacity,
+        "next_gid": index.next_gid,
+        "next_seg_id": index._next_seg_id,
+        "segments": seg_entries,
+        "memtable": {"capacity": mt.capacity, "d": mt.d,
+                     "count": mt.count},
+        "spec": index.spec.to_dict() if index.spec is not None else None,
+        "r_min_cache": _rmin_dump(rmin_entries),
+    })
+
+
+def _load_streaming(path: str, manifest: dict, device: Any) -> Any:
+    import torch
+    from repro_torch._device import to_device
+    from repro_torch.api.spec import IndexSpec
+    from repro_torch.core import forest_from_arrays, plan_from_arrays
+    from repro_torch.streaming.index import (_DELTA, StreamingDETLSH,
+                                             _locations)
+    from repro_torch.streaming.segment import Segment
+
+    common = _load_npz(path, "common.npz")
+    mt_meta = _field(manifest, "memtable", dict, path)
+    index = StreamingDETLSH(
+        params=_params_from(manifest, path),
+        A=to_device(common["A"], device, torch.float32),
+        bp_all=to_device(common["bp_all"], device, torch.float32),
+        base=None,
+        Nr=_field(manifest, "Nr", int, path),
+        leaf_size=_field(manifest, "leaf_size", int, path),
+        delta_capacity=_field(mt_meta, "capacity", int, path),
+        max_segments=_field(manifest, "max_segments", int, path),
+        id_capacity=_field(manifest, "id_capacity", int, path))
+    spec = manifest.get("spec")
+    index.spec = IndexSpec.from_dict(spec) if spec is not None else None
+    if index.spec is not None:      # the seal path keeps the spec's builder
+        index.build_impl = index.spec.build_impl
+
+    segments = _field(manifest, "segments", list, path)
+    for entry in segments:
+        arrays = _load_npz(path, _field(entry, "file", str, path))
+        fmeta = _field(entry, "forest", dict, path)
+        seg = Segment(seg_id=_field(entry, "seg_id", int, path),
+                      data=to_device(arrays["data"], device, torch.float32),
+                      gids=np.asarray(arrays["gids"]),
+                      live=np.asarray(arrays["live"]).copy(),
+                      forest=forest_from_arrays(
+                          arrays, n=_field(fmeta, "n", int, path),
+                          leaf_size=_field(fmeta, "leaf_size", int, path),
+                          device=device),
+                      clip_fraction=float(entry["clip_fraction"]))
+        if entry.get("has_plan"):
+            seg._plan = plan_from_arrays(arrays, device)
+        index.manifest.add(seg)
+        live_rows = np.flatnonzero(seg.live)
+        index.locator.update(_locations(seg.gids[live_rows], seg.seg_id,
+                                        live_rows.tolist()))
+
+    mt = index.memtable
+    saved = _load_npz(path, "memtable.npz")
+    try:
+        mt.vecs[:] = saved["vecs"]
+        mt.gids[:] = saved["gids"]
+        mt.live[:] = saved["live"]
+    except (ValueError, TypeError) as exc:
+        raise SnapshotFormatError(
+            f"{saved.path!r}: memtable arrays do not match the manifest's "
+            f"capacity/d ({type(exc).__name__}: {exc})") from exc
+    mt.count = _field(mt_meta, "count", int, path)
+    mt.version += 1
+    live_slots = np.flatnonzero(mt.live[: mt.count])
+    index.locator.update(_locations(mt.gids[live_slots], _DELTA,
+                                    live_slots.tolist()))
+
+    index.next_gid = _field(manifest, "next_gid", int, path)
+    index._next_seg_id = _field(manifest, "next_seg_id", int, path)
+    index._rmin_cache = ((index.manifest.version, mt.version),
+                         _rmin_load(manifest.get("r_min_cache")))
     return index
 
 
@@ -286,8 +422,9 @@ def save(index: Any, path: str) -> None:
 
 
 def load(path: str, *, device: Optional[Any] = None) -> Any:
-    """Read a static snapshot directory back into a live ``core.DETLSH``
-    on ``device`` (CUDA unless the caller asks otherwise).
+    """Read a snapshot directory back into a live index on ``device``
+    (CUDA unless the caller asks otherwise): a ``core.DETLSH`` or a
+    ``streaming.StreamingDETLSH`` according to the manifest's ``kind``.
 
     Raises ``SnapshotFormatError`` on any format mismatch and
     ``SnapshotIntegrityError`` when a file's bytes no longer match the
@@ -302,7 +439,9 @@ def load(path: str, *, device: Optional[Any] = None) -> Any:
     if kind in _NOT_YET_KINDS:
         raise NotImplementedError(
             f"{path!r}: {kind!r} snapshots load in the reference package; "
-            f"the PyTorch port reads the static kind in this slice")
-    if kind != "static":
-        raise SnapshotFormatError(f"{path!r}: unknown snapshot kind {kind!r}")
-    return _load_static(path, manifest, dev)
+            f"the PyTorch port reads the static and streaming kinds")
+    if kind == "static":
+        return _load_static(path, manifest, dev)
+    if kind == "streaming":
+        return _load_streaming(path, manifest, dev)
+    raise SnapshotFormatError(f"{path!r}: unknown snapshot kind {kind!r}")

@@ -1,8 +1,9 @@
 """The AnnIndex protocol — the one index surface.
 
-``core.DETLSH`` (static) satisfies ``AnnIndex``, as the streaming and
-sharded indexes will when their slices of the port land; a mutable index
-additionally satisfies ``MutableAnnIndex``.  Serving talks only to these
+``core.DETLSH`` (static) and ``streaming.StreamingDETLSH`` satisfy
+``AnnIndex``, as the sharded index will when its slice of the port lands;
+the streaming index, being mutable, additionally satisfies
+``MutableAnnIndex``.  Serving talks only to these
 protocols — capability checks are ``isinstance`` against a protocol, never
 ``hasattr`` duck-typing.
 

@@ -2,9 +2,9 @@
 
 The fields, their defaults and the values they accept are the reference
 package's, so a snapshot's ``spec`` dict round-trips between the two
-packages (``to_dict``/``from_dict``).  In this slice of the port the
-static kind builds; ``kind='streaming'`` and a ``placement`` (the sharded
-PDET index) are accepted here and refused at build.
+packages (``to_dict``/``from_dict``).  The port builds the static and
+the streaming kinds; a ``placement`` (the sharded PDET index) is accepted
+here and refused at build.
 """
 
 from __future__ import annotations

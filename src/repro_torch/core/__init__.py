@@ -35,6 +35,27 @@ FOREST_DTYPES = {"point_ids": torch.int32, "proj_sorted": torch.float32,
                  "leaf_valid": torch.bool, "breakpoints": torch.float32}
 
 
+def forest_from_arrays(arrays: Any, *, n: int, leaf_size: int,
+                       device: torch.device) -> DEForest:
+    """A ``DEForest`` on ``device`` from the ``forest.<key>`` arrays of a
+    snapshot (either package's), cast to the storage dtypes."""
+    return DEForest(
+        n=int(n), leaf_size=int(leaf_size),
+        **{k: to_device(np.asarray(arrays["forest." + k]), device, dt)
+           for k, dt in FOREST_DTYPES.items()})
+
+
+def plan_from_arrays(arrays: Any, device: torch.device) -> Optional[FusedPlan]:
+    """The fused plan a snapshot holds (``plan.points_sorted`` /
+    ``plan.inv_perm``), or None when it holds none."""
+    if "plan.points_sorted" not in arrays:
+        return None
+    return FusedPlan(
+        points_sorted=to_device(arrays["plan.points_sorted"], device,
+                                torch.float32),
+        inv_perm=to_device(arrays["plan.inv_perm"], device, torch.int32))
+
+
 def estimate_r_min(data: Any, queries: Any, k: int, c: float, *,
                    sample: int = 2048) -> float:
     """Pick the initial search radius (paper §V-B1, following PM-LSH [9]).
@@ -131,21 +152,13 @@ class DETLSH:
         how the reference's state (its A and breakpoints, drawn with
         ``jax.random``) crosses into the port."""
         dev = resolve_device(device)
-        forest = DEForest(
-            n=int(n), leaf_size=int(leaf_size),
-            **{k: to_device(np.asarray(arrays["forest." + k]), dev, dt)
-               for k, dt in FOREST_DTYPES.items()})
         index = cls(params=params,
                     A=to_device(arrays["A"], dev, torch.float32),
-                    forest=forest,
+                    forest=forest_from_arrays(arrays, n=n,
+                                              leaf_size=leaf_size, device=dev),
                     data=to_device(arrays["data"], dev, torch.float32),
                     spec=spec)
-        if "plan.points_sorted" in arrays:
-            index._plan = FusedPlan(
-                points_sorted=to_device(arrays["plan.points_sorted"], dev,
-                                        torch.float32),
-                inv_perm=to_device(arrays["plan.inv_perm"], dev,
-                                   torch.int32))
+        index._plan = plan_from_arrays(arrays, dev)
         return index
 
     @property
@@ -220,5 +233,5 @@ __all__ = [
     "DETLSH", "DEForest", "FusedPlan", "LSHParams", "QueryConfig",
     "QueryResult", "derive_params", "build_forest", "knn_query_batch",
     "make_fused_plan", "estimate_r_min", "SUCCESS_PROBABILITY",
-    "FOREST_DTYPES",
+    "FOREST_DTYPES", "forest_from_arrays", "plan_from_arrays",
 ]

@@ -5,8 +5,8 @@ interface, loaded with ``ctypes``: seconds per file, where a build through
 ``torch.utils.cpp_extension`` (PyTorch's headers) takes minutes.  Builds
 happen at first use on a CUDA tensor, never at import, and are cached in
 ``build/repro_torch_kernels/`` at the repository root under a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads at once.  The compiler's register/shared-memory report
+source, the shared headers and the flags, so an edited source rebuilds and
+an unchanged one loads at once.  The compiler's register/shared-memory report
 (``-Xptxas -v``) is kept beside each library as ``<name>-<hash>.log``.
 """
 
@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("encode_pack", "range_rerank", "leaf_bounds", "l2_rerank")
+KERNELS = ("encode_pack", "range_rerank", "leaf_bounds", "l2_rerank",
+           "project_encode_pack")
 
 
 def _nvcc() -> str:
@@ -52,9 +53,12 @@ def build_dir() -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
+    """Where the library of ``csrc/<name>.cu`` lives once built.  The hash
+    covers the headers of ``csrc/`` too, which the sources include."""
     where = build_dir()
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return where / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,10 +1,15 @@
-"""Wrapper of the ``encode_pack`` CUDA kernel (``csrc/encode_pack.cu``).
+"""Wrappers of the build's CUDA kernels: ``encode_pack``
+(``csrc/encode_pack.cu``) and ``project_encode_pack``
+(``csrc/project_encode_pack.cu``).
 
-The static build's fused step: encode every projected coordinate into its
-region id and pack each tree's K ids into the interleaved 64-bit sort key,
-writing the per-tree (L, n, K) layouts directly.  The plain version is
-:func:`repro_torch.kernels.ref.encode_pack`; ``kernels/ops.py`` picks
-between the two by device.
+``encode_pack`` is the static build's fused step: encode every projected
+coordinate into its region id and pack each tree's K ids into the
+interleaved 64-bit sort key, writing the per-tree (L, n, K) layouts
+directly.  ``project_encode_pack`` is the streaming seal's: the same with
+the projection x @ A computed in the kernel first.  The plain versions are
+:func:`repro_torch.kernels.ref.encode_pack` and
+:func:`repro_torch.kernels.ref.project_encode_pack`; ``kernels/ops.py``
+picks between kernel and plain version by device.
 """
 
 from __future__ import annotations
@@ -17,16 +22,63 @@ from repro_torch.kernels import _build
 
 # The kernel keeps a (32, L*K + 1) tile of proj (f32) and of codes (u8) in
 # shared memory, which holds at most 227 KB per block on an H100.
-_MAX_DIMS = 232448 // (32 * 5) - 1
+_MAX_SMEM = 232448
+_MAX_DIMS = _MAX_SMEM // (32 * 5) - 1
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("encode_pack")
-    fn = lib.encode_pack_launch
+def _project_smem_bytes(d: int, D: int) -> int:
+    """Shared memory of one ``project_encode_pack`` block (the .cu file's
+    smem_bytes): a (32, d) tile of x padded to float4 rows and the
+    (32, D + 1) f32 and u8 tiles of encode_pack."""
+    return 4 * 32 * ((d + 3) // 4 * 4) + 32 * (D + 1) * 5
+
+
+def _load(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with its launch function typed:
+    ``n_ptrs`` pointers, the row count (int64), ``n_ints`` ints, the stream."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6
-                   + [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int64]
+                   + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
     return lib
+
+
+def _checked_dims(breakpoints: torch.Tensor, D: int, K: int,
+                  L: int) -> tuple[int, int, int]:
+    """(Nr, hi_bits, lo_bits) for the launch, after the shape checks both
+    kernels share."""
+    from repro_torch.core.detree import check_nr, key_bit_budget
+    E = breakpoints.shape[1]
+    if D != L * K or tuple(breakpoints.shape) != (D, E) or E < 3:
+        raise ValueError(f"{D} projected dims and breakpoints "
+                         f"{tuple(breakpoints.shape)} do not fit L={L}, "
+                         f"K={K}")
+    check_nr(E - 1)
+    if D > _MAX_DIMS:
+        raise ValueError(f"L*K = {D} exceeds the kernel's shared-memory "
+                         f"tile ({_MAX_DIMS} dims)")
+    _, hi_bits, lo_bits = key_bit_budget(K)
+    return E - 1, hi_bits, lo_bits
+
+
+def _check_inputs(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if not (tensors[0].is_cuda and all(t.device == dev for t in tensors)):
+        raise ValueError(f"{name} kernel needs its inputs on one CUDA device")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _outputs(n: int, K: int, L: int, dev: torch.device) -> tuple:
+    """Empty (proj_t, codes_t, key_hi, key_lo) in the per-tree layouts."""
+    return (torch.empty((L, n, K), dtype=torch.float32, device=dev),
+            torch.empty((L, n, K), dtype=torch.int32, device=dev),
+            torch.empty((L, n), dtype=torch.int64, device=dev),
+            torch.empty((L, n), dtype=torch.int64, device=dev))
 
 
 def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
@@ -37,40 +89,59 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
     key_hi (L, n) int64, key_lo (L, n) int64), key words holding uint32
     values.  Launches the kernel once and counts it in
     ``encode_pack.launches``."""
-    from repro_torch.core.detree import check_nr, key_bit_budget
-    if not (proj.is_cuda and breakpoints.device == proj.device):
-        raise ValueError("encode_pack kernel needs proj and breakpoints on "
-                         "one CUDA device")
-    if proj.dtype != torch.float32 or breakpoints.dtype != torch.float32:
-        raise TypeError(f"encode_pack takes float32, got {proj.dtype} and "
-                        f"{breakpoints.dtype}")
+    _check_inputs("encode_pack", proj, breakpoints)
     n, D = proj.shape
-    E = breakpoints.shape[1]
-    if D != L * K or tuple(breakpoints.shape) != (D, E) or E < 3:
-        raise ValueError(f"shapes proj {tuple(proj.shape)}, breakpoints "
-                         f"{tuple(breakpoints.shape)} do not fit L={L}, K={K}")
-    check_nr(E - 1)
-    if D > _MAX_DIMS:
-        raise ValueError(f"L*K = {D} exceeds the kernel's shared-memory "
-                         f"tile ({_MAX_DIMS} dims)")
-    if not (proj.is_contiguous() and breakpoints.is_contiguous()):
-        raise ValueError("encode_pack takes contiguous tensors")
-    _, hi_bits, lo_bits = key_bit_budget(K)
-    dev = proj.device
-    proj_t = torch.empty((L, n, K), dtype=torch.float32, device=dev)
-    codes_t = torch.empty((L, n, K), dtype=torch.int32, device=dev)
-    key_hi = torch.empty((L, n), dtype=torch.int64, device=dev)
-    key_lo = torch.empty((L, n), dtype=torch.int64, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    Nr, hi_bits, lo_bits = _checked_dims(breakpoints, D, K, L)
+    out = _outputs(n, K, L, proj.device)
+    lib = _load("encode_pack", 6, 5)
+    with torch.cuda.device(proj.device):
+        stream = torch.cuda.current_stream(proj.device).cuda_stream
         code = lib.encode_pack_launch(
-            proj.data_ptr(), breakpoints.data_ptr(), proj_t.data_ptr(),
-            codes_t.data_ptr(), key_hi.data_ptr(), key_lo.data_ptr(), n, K, L,
-            E - 1, hi_bits, lo_bits, stream)
+            proj.data_ptr(), breakpoints.data_ptr(),
+            *(o.data_ptr() for o in out), n, K, L, Nr, hi_bits, lo_bits,
+            stream)
     _build.check(lib, "encode_pack", code)
     encode_pack.launches += 1
-    return proj_t, codes_t, key_hi, key_lo
+    return out
 
 
 encode_pack.launches = 0
+
+
+def project_encode_pack(x: torch.Tensor, a: torch.Tensor,
+                        breakpoints: torch.Tensor, *, K: int, L: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """x (n, d) f32, a (d, L*K) f32, breakpoints (L*K, Nr+1) f32, all
+    contiguous on one CUDA device -> encode_pack's outputs for x @ a, the
+    projection summed in d order inside the kernel (bit-identical to
+    :func:`repro_torch.kernels.ref.project_encode_pack`).  Raises
+    ``ValueError`` when a block's tiles (32 rows of x, 32 rows of
+    projections) do not fit its shared memory.  Launches the kernel once and counts it in
+    ``project_encode_pack.launches``."""
+    _check_inputs("project_encode_pack", x, a, breakpoints)
+    n, d = x.shape
+    D = breakpoints.shape[0]
+    if tuple(a.shape) != (d, D):
+        raise ValueError(f"a {tuple(a.shape)} is not (d, L*K) = ({d}, {D})")
+    Nr, hi_bits, lo_bits = _checked_dims(breakpoints, D, K, L)
+    smem = _project_smem_bytes(d, D)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"32-row tiles of d = {d} inputs and L*K = {D} projections "
+            f"need {smem} bytes of shared memory, above a block's "
+            f"{_MAX_SMEM}; project_encode_pack does not take d this large")
+    out = _outputs(n, K, L, x.device)
+    lib = _load("project_encode_pack", 7, 6)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.project_encode_pack_launch(
+            x.data_ptr(), a.data_ptr(), breakpoints.data_ptr(),
+            *(o.data_ptr() for o in out), n, d, K, L, Nr, hi_bits, lo_bits,
+            stream)
+    _build.check(lib, "project_encode_pack", code)
+    project_encode_pack.launches += 1
+    return out
+
+
+project_encode_pack.launches = 0

@@ -42,6 +42,20 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
     return _bf.encode_pack(proj, breakpoints, K=K, L=L)
 
 
+def project_encode_pack(x: torch.Tensor, a: torch.Tensor,
+                        breakpoints: torch.Tensor, *, K: int, L: int,
+                        interpret: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """One-pass project -> encode -> key-pack (the frozen-breakpoint seal;
+    see kernels/build_fused.py).  x (n, d), a (d, L*K) -> per-tree
+    layouts, as :func:`encode_pack` gives them for x @ a."""
+    if interpret or not _on_cuda(x):
+        return _ref.project_encode_pack(x, a, breakpoints, K=K, L=L)
+    return _bf.project_encode_pack(x.contiguous(), a.contiguous(),
+                                   breakpoints.contiguous(), K=K, L=L)
+
+
 def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
                  leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
                  leaf_valid: torch.Tensor, breakpoints: torch.Tensor,

@@ -41,6 +41,29 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
     return proj_t, codes_t, key_hi, key_lo
 
 
+def project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """x (n, d) @ a (d, D) in f32, summed over d in index order with one
+    rounded product and one rounded sum a step, as the CUDA
+    ``project_encode_pack`` kernel does (``__fadd_rn(acc, __fmul_rn(x, a))``).
+    One ulp of a projection can flip a code at an edge, so the kernel and
+    this version must agree bit for bit, not within a tolerance."""
+    acc = torch.zeros((x.shape[0], a.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for j in range(x.shape[1]):                # fixed order, no contraction
+        acc = acc + x[:, j, None] * a[j]
+    return acc
+
+
+def project_encode_pack(x: torch.Tensor, a: torch.Tensor,
+                        breakpoints: torch.Tensor, *, K: int, L: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """The seal's fused step: :func:`project` then :func:`encode_pack`.
+    x (n, d), a (d, L*K), breakpoints (L*K, Nr+1) -> encode_pack's outputs."""
+    return encode_pack(project(x.to(torch.float32), a.to(torch.float32)),
+                       breakpoints, K=K, L=L)
+
+
 def _edge_coords(breakpoints: torch.Tensor, leaf_lo: torch.Tensor,
                  leaf_hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., K, E) breakpoints, (..., nl, K) bounds -> the leaf boxes'

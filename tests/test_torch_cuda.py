@@ -211,3 +211,113 @@ def test_vmap_wrappers_refuse_bad_inputs(cuda):
         l2k.l2_rerank(q.double(), q.double())
     with pytest.raises(ValueError):
         l2k.l2_rerank(q, q.cpu())
+
+
+# ---------------------------------------------------------------------------
+# The streaming seal's kernel: project_encode_pack
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,K,L,Nr", [(16384, 128, 16, 4, 256),
+                                        (3001, 128, 4, 16, 256),
+                                        (777, 17, 5, 3, 64),
+                                        (40, 33, 33, 1, 256),
+                                        (5, 3, 2, 2, 16),
+                                        (1000, 960, 8, 2, 128)])
+def test_project_encode_pack_kernel_bit_identical(cuda, n, d, K, L, Nr):
+    """Ragged row counts, d off the float4 width and a wide d (GIST's 960):
+    every output equal to the plain version bit for bit (the projection is
+    summed in the same d order, each step rounded alike)."""
+    gen = torch.Generator(cuda).manual_seed(n + d)
+    x = torch.randn((n, d), generator=gen, device=cuda)
+    a = torch.randn((d, L * K), generator=gen, device=cuda)
+    bp = encoding.full_sort(ref.project(x, a), Nr)
+    before = build_fused.project_encode_pack.launches
+    got = ops.project_encode_pack(x, a, bp, K=K, L=L)
+    assert build_fused.project_encode_pack.launches == before + 1
+    want = ref.project_encode_pack(x, a, bp, K=K, L=L)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    interp = ops.project_encode_pack(x, a, bp, K=K, L=L, interpret=True)
+    assert build_fused.project_encode_pack.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(interp, want))
+
+
+def test_project_encode_pack_refuses_rows_too_wide(cuda):
+    x = torch.zeros((64, 2048), device=cuda)
+    a = torch.zeros((2048, 64), device=cuda)
+    bp = torch.sort(torch.randn((64, 257), device=cuda), dim=1).values
+    with pytest.raises(ValueError, match="shared memory"):
+        build_fused.project_encode_pack(x, a, bp, K=16, L=4)
+    with pytest.raises(TypeError):
+        build_fused.project_encode_pack(x.double(), a, bp, K=16, L=4)
+    with pytest.raises(ValueError):
+        build_fused.project_encode_pack(x[:, :128], a.cpu()[:128], bp, K=16,
+                                        L=4)
+
+
+def _streaming_index(cuda, build_impl="auto"):
+    import repro_torch.api as api
+    rng = np.random.default_rng(8)
+    data = rng.standard_normal((3000, 32)).astype(np.float32)
+    spec = api.IndexSpec(kind="streaming", K=8, L=3, leaf_size=32,
+                         delta_capacity=256, max_segments=2,
+                         build_impl=build_impl)
+    return api.build(data, torch.Generator().manual_seed(0), spec,
+                     device=cuda), rng
+
+
+@pytest.mark.parametrize("build_impl,launched", [
+    ("auto", True), ("pallas", True), ("xla", False),
+    ("pallas_interpret", False)])
+def test_seal_on_the_card_runs_the_kernel(cuda, build_impl, launched):
+    """A seal launches project_encode_pack once on 'auto'/'pallas' and
+    never on the plain names; either way the segment equals the one the
+    plain version seals, bit for bit."""
+    from repro_torch.core import FOREST_DTYPES
+    from repro_torch.streaming import build_segment
+    idx, rng = _streaming_index(cuda, build_impl)
+    before = build_fused.project_encode_pack.launches
+    idx.upsert(rng.standard_normal((600, 32)).astype(np.float32))
+    assert len(idx.manifest.segments) == 3              # two seals
+    moved = build_fused.project_encode_pack.launches - before
+    assert moved == (2 if launched else 0)
+    seg = idx.manifest.segments[1]
+    plain = build_segment(seg.data, seg.gids, idx.A, idx.params, idx.bp_all,
+                          Nr=idx.Nr, leaf_size=idx.leaf_size,
+                          seg_id=seg.seg_id, live=seg.live, build_impl="xla")
+    assert seg.clip_fraction == plain.clip_fraction
+    for name in FOREST_DTYPES:
+        got = getattr(seg.forest, name)
+        assert got.is_cuda and torch.equal(got, getattr(plain.forest, name))
+
+
+def test_streaming_searches_on_the_card_match_plain_versions(cuda):
+    """Fused and vmap searches over segments with tombstones and a delta,
+    through the kernels, against the same requests on the plain versions."""
+    import repro_torch.api as api
+    from repro_torch.kernels import range_rerank as rrk
+    idx, rng = _streaming_index(cuda)
+    g = idx.upsert(rng.standard_normal((600, 32)).astype(np.float32))
+    idx.delete(np.concatenate([np.arange(0, 300, 4), g[::5]]))
+    assert idx.memtable.n_live > 0 and all(
+        s.has_tombstones for s in idx.manifest.segments)
+    q = torch.tensor(rng.standard_normal((12, 32)), dtype=torch.float32,
+                     device=cuda)
+    max_sq = float(max((s.data ** 2).sum(-1).max()
+                       for s in idx.manifest.segments))
+    for kw, impls, reranks in (
+            (dict(engine="fused"), ("auto", "pallas_interpret"), True),
+            (dict(engine="vmap"), ("pallas", "pallas_interpret"), False)):
+        before = rrk.range_rerank.launches
+        kern = idx.search(q, api.SearchRequest(
+            k=10, r_min=0.5, bounds_impl=impls[0], dist_impl=impls[0], **kw))
+        assert (rrk.range_rerank.launches > before) == reranks
+        plain = idx.search(q, api.SearchRequest(
+            k=10, r_min=0.5, bounds_impl=impls[1], dist_impl=impls[1], **kw))
+        assert torch.equal(kern.ids, plain.ids)
+        assert torch.equal(kern.stats.rounds, plain.stats.rounds)
+        assert torch.equal(kern.stats.n_candidates, plain.stats.n_candidates)
+        torch.testing.assert_close(kern.dists, plain.dists, rtol=1e-4,
+                                   atol=1e-4 * max_sq)
+        dead = {int(x) for x in np.arange(0, 300, 4)} | {int(x) for x in g[::5]}
+        assert not set(kern.ids.flatten().tolist()) & dead

@@ -247,17 +247,27 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_kinds_raise(tmp_path):
+    """The sharded PDET index is not ported: a placement raises at build
+    and a pdet snapshot at load.  The streaming kind is ported: it builds,
+    and the reference's streaming snapshot loads."""
     data, _ = _dataset(seed=7, n=256, nq=1)
-    with pytest.raises(NotImplementedError):
-        tapi.build(data, None, tapi.IndexSpec(kind="streaming"), device="cpu")
     with pytest.raises(NotImplementedError):
         tapi.build(data, None, tapi.IndexSpec(
             placement=tapi.PlacementSpec(mesh_shape=(2,))), device="cpu")
+    pdet = japi.build(jnp.asarray(data), jax.random.key(0), japi.IndexSpec(
+        K=4, L=2, placement=japi.PlacementSpec(mesh_shape=(1,))))
+    pdet.save(str(tmp_path / "pdet"))
+    with pytest.raises(NotImplementedError, match="pdet"):
+        tapi.load(tmp_path / "pdet", device="cpu")
+    built = tapi.build(data, None, tapi.IndexSpec(kind="streaming", K=4, L=2,
+                                                  delta_capacity=64),
+                       device="cpu")
+    assert built.n_points == 256
     stream = japi.build(jnp.asarray(data), jax.random.key(0), japi.IndexSpec(
         kind="streaming", K=4, L=2, delta_capacity=64))
     stream.save(str(tmp_path / "stream"))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tapi.load(tmp_path / "stream", device="cpu")
+    loaded = tapi.load(tmp_path / "stream", device="cpu")
+    assert loaded.state_digest() == stream.state_digest()
 
 
 def test_corrupt_snapshot_raises_integrity_error(tmp_path):
