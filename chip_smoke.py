@@ -68,6 +68,33 @@ Phases, each printed as one line; any failure exits non-zero:
              then save -> load(device='cuda'): the same state_digest and
              bit-identical searches.  Seal, upsert, delete, compaction and
              warm search times, recall@50 and the c^2 rate.
+  lsh_project  the projection kernel against its plain version (d-order
+             sums) on the main path's rows and A (1M x 128 -> 64) and at
+             GIST's width (100,000 x 960 -> 64): bit-identical; CUDA-event
+             times, and torch.matmul (TF32 off) as a yardstick.
+  encode_bins  the encode kernel against its plain version (searchsorted)
+             on the main path's projections with its index's breakpoints
+             (1M x 64, Nr = 256): bit-identical; torch.searchsorted on the
+             transposed coordinates plus the clamp as a yardstick.
+  pdet_path  the sharded PDET index at the same shape through
+             repro_torch.api.build(IndexSpec(..., project_impl='pallas',
+             build_impl='reference', encode_impl='pallas',
+             placement=PlacementSpec(mesh_shape=(1,)))): the build launches
+             lsh_project and encode_bins once each and encode_pack never
+             (seconds by stage); its forest equals the fused builder's from
+             the same projection and breakpoints, dtypes included; at S = 1,
+             3 and 4 shards of the card (15,625 leaves a tree, so 3 and 4
+             pad) 100 queries at the estimated r_min and at the true k-NN
+             scale / c^2 (>= 2 rounds) answer as the fused engine on the
+             same index bit for bit (ids, distances, rounds, candidates,
+             final radii) with range_rerank launched S times a round
+             (pdet_breakdown: CUDA-event ms of one round's steps on one
+             shard at S = 1 and 4);
+             recall@50 and the c^2 rate; engine='pdet' with probe_depth=2
+             raises, 'auto' with it runs fused; warm ms (median of 20, min,
+             max) of fused and of pdet at S = 1 and 4; save at S = 4 ->
+             load(device='cuda') (back as S = 1 on one card) -> the same
+             answers, and again resharded onto 4 shards of the card.
 
 Then one JSON line per the kernel table (time, plain time, launches on the
 path that runs the kernel, least possible time from bytes and operations,
@@ -715,15 +742,278 @@ def check_project_encode_pack(torch, x, K: int, L: int, Nr: int,
     return out
 
 
+def check_lsh_project(torch, x, a, case: str) -> dict:
+    """The projection kernel against its plain version on x (n, d) and
+    a (d, m) of the card: bit-identical (both sum in d order);
+    torch.matmul with TF32 off timed beside it as the library call."""
+    from repro_torch.kernels import lsh_project as lpk
+    from repro_torch.kernels import ref
+    got = lpk.lsh_project(x, a)
+    want = ref.lsh_project(x, a)
+    max_err = float((got.double() - want.double()).abs().max())
+    require(got.dtype == want.dtype and torch.equal(got, want),
+            f"lsh_project {case}: differs from the plain version (max err "
+            f"{max_err})")
+    del got, want
+    n, d = x.shape
+    m = a.shape[1]
+    ms = time_ms(torch, lambda: lpk.lsh_project(x, a))
+    plain = time_ms(torch, lambda: ref.lsh_project(x, a), warmup=1, reps=3)
+    library = time_ms(torch, lambda: torch.matmul(x, a))
+    nbytes = 4 * (n * d + d * m + n * m)
+    flops = 2 * n * d * m
+    bms, by = bound_ms(nbytes, flops)
+    out = dict(case=case, n=n, d=d, m=m, bit_identical=True,
+               max_abs_err=max_err, ms=ms, plain_ms=plain, library_ms=library,
+               bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+    line("lsh_project", **out)
+    return out
+
+
+def check_encode_bins(torch, coords, bp) -> dict:
+    """The encode kernel against its plain version on coords (n, D) and
+    breakpoints (D, Nr+1) of the card: bit-identical.  The library call is
+    one torch.searchsorted of the transposed coordinates into the inner
+    edges, plus the clamp (the transposes are made before the timing)."""
+    from repro_torch.kernels import encode_bins as ebk
+    from repro_torch.kernels import ref
+    got = ebk.encode_bins(coords, bp)
+    want = ref.encode_bins(coords, bp)
+    max_err = float((got.double() - want.double()).abs().max())
+    require(got.dtype == want.dtype and torch.equal(got, want),
+            f"encode_bins: differs from the plain version (max err "
+            f"{max_err})")
+    del got, want
+    n, D = coords.shape
+    Nr = bp.shape[1] - 1
+    inner = bp[:, 1:Nr].contiguous()
+    coords_t = coords.T.contiguous()
+    ms = time_ms(torch, lambda: ebk.encode_bins(coords, bp))
+    plain = time_ms(torch, lambda: ref.encode_bins(coords, bp), warmup=1,
+                    reps=5)
+    library = time_ms(torch, lambda: torch.clamp(torch.searchsorted(
+        inner, coords_t, right=True), 0, Nr - 1))
+    nbytes = 4 * n * D + 4 * D * (Nr + 1) + 4 * n * D
+    flops = n * D * math.ceil(math.log2(Nr))          # one compare per step
+    bms, by = bound_ms(nbytes, flops)
+    out = dict(n=n, D=D, Nr=Nr, bit_identical=True, max_abs_err=max_err,
+               ms=ms, plain_ms=plain, library_ms=library, bound_ms=bms,
+               bound_by=by, bytes=nbytes, flops=flops)
+    line("encode_bins", **out)
+    return out
+
+
+def _same_answers(torch, got, want) -> bool:
+    return (torch.equal(got.ids, want.ids)
+            and torch.equal(got.dists, want.dists)
+            and all(torch.equal(getattr(got.stats, f),
+                                getattr(want.stats, f))
+                    for f in ("rounds", "n_candidates", "final_r")))
+
+
+def pdet_breakdown(torch, pdet, queries, r_min: float) -> None:
+    """CUDA-event ms of each step of one pdet round for shard 0 of
+    ``pdet`` (a round repeats the first four steps on every shard) at the
+    radius ``r_min``, one step at a time."""
+    from repro_torch.core.distributed import _fold_shard
+    from repro_torch.kernels import ops
+    p, sh = pdet.params, pdet.layout.shards[0]
+    q_proj = _q_proj(pdet, queries)
+    r_eff = torch.full((queries.shape[0],), p.epsilon * r_min,
+                       device=queries.device)
+
+    def rerank():
+        return ops.range_rerank(queries, q_proj, r_eff, sh.leaf_lo,
+                                sh.leaf_hi, sh.leaf_valid, sh.breakpoints,
+                                sh.points, sh.valid,
+                                leaf_size=pdet.forest.leaf_size)
+
+    dmat = rerank()
+    part = _fold_shard(dmat, sh)
+    steps = {"range_rerank": rerank,
+             "count_scanned": lambda: torch.isfinite(dmat).sum(),
+             "fold_inv_perm": lambda: _fold_shard(dmat, sh),
+             "merge_minimum": lambda: torch.minimum(part, part)}
+    line("pdet_breakdown", S=pdet.n_shards, shard_positions=sh.points.shape[1],
+         **{name: time_ms(torch, fn, warmup=1, reps=5)
+            for name, fn in steps.items()})
+
+
+def pdet_path(torch, data, queries) -> dict:
+    """The sharded PDET index at SIFT1M's shape, built through the paper's
+    per-tree builder with lsh_project and encode_bins, held bit for bit
+    against the fused engine on the same index at 1, 3 and 4 shards."""
+    import repro_torch.api as api
+    from repro_torch.baselines.brute_force import BruteForce
+    from repro_torch.core import DETLSH
+    from repro_torch.core.detree import build_forest
+    from repro_torch.core.distributed import PDETIndex
+    from repro_torch.core.theory import SUCCESS_PROBABILITY
+    from repro_torch.kernels import range_rerank as rrk
+    from repro_torch.launch.mesh import mesh_from_placement
+    spec = api.IndexSpec(kind="static", K=16, L=4, c=1.5, beta_override=0.1,
+                         Nr=256, leaf_size=64, project_impl="pallas",
+                         build_impl="reference", encode_impl="pallas",
+                         placement=api.PlacementSpec(mesh_shape=(1,)))
+    cuda = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pdet1 = api.build(data, torch.Generator().manual_seed(0), spec)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = _stream_counts()
+    require(isinstance(pdet1, PDETIndex) and pdet1.n_shards == 1,
+            "a placed spec did not build a one-shard PDETIndex")
+    require(build_launches["lsh_project"] == 1
+            and build_launches["encode_bins"] == 1
+            and build_launches["encode_pack"] == 0,
+            f"the reference-builder build launched {build_launches}")
+
+    # The builders agree: the fused builder's forest from the same
+    # projection and breakpoints (through encode_pack), dtypes included.
+    from repro_torch.kernels import lsh_project as lpk
+    p = pdet1.params
+    proj = lpk.lsh_project(pdet1.data, pdet1.A)
+    bp = pdet1.forest.breakpoints.reshape(p.L * p.K, spec.Nr + 1)
+    fused_forest = build_forest(proj, p.K, p.L, Nr=spec.Nr,
+                                leaf_size=spec.leaf_size, breakpoints=bp)
+    for name in ("point_ids", "proj_sorted", "codes_sorted", "valid",
+                 "leaf_lo", "leaf_hi", "leaf_valid", "breakpoints"):
+        got, want = getattr(pdet1.forest, name), getattr(fused_forest, name)
+        require(got.dtype == want.dtype and torch.equal(got, want),
+                f"pdet_path: the reference builder's {name} differs from "
+                f"the fused builder's")
+    del proj, fused_forest
+
+    det = DETLSH(params=p, A=pdet1.A, forest=pdet1.forest, data=pdet1.data,
+                 spec=dataclasses.replace(spec, placement=None))
+    det._plan = pdet1.plan
+    c2 = p.c ** 2
+    gt_ids, gt_d = BruteForce(det.data).query(queries, 50)
+    r_scale = float(gt_d[:, -1].median()) / c2
+    requests = {"estimated": api.SearchRequest(k=50),
+                "scaled": api.SearchRequest(k=50, r_min=r_scale)}
+    fused = {name: det.search(queries, dataclasses.replace(r, engine="fused"))
+             for name, r in requests.items()}
+    require(int(fused["scaled"].stats.rounds.max()) >= 2,
+            f"no lane ran a second round at r_min={r_scale}")
+
+    def placed(S: int):
+        placement = api.PlacementSpec(mesh_shape=(S,))
+        return PDETIndex.from_detlsh(det, placement, mesh=mesh_from_placement(
+            placement, devices=[cuda] * S), spec=spec)
+
+    shards, warm, quality = {}, {}, {}
+    for S in (1, 3, 4):
+        pdet = pdet1 if S == 1 else placed(S)
+        torch.cuda.synchronize()
+        for name, req in requests.items():
+            before = rrk.range_rerank.launches
+            got = pdet.search(queries, req)
+            torch.cuda.synchronize()
+            launched = rrk.range_rerank.launches - before
+            require(got.stats.engine == "pdet",
+                    f"S={S} {name}: ran {got.stats.engine}")
+            require(_same_answers(torch, got, fused[name]),
+                    f"S={S} {name}: pdet differs from fused on the same "
+                    f"index")
+            rounds_run = int(got.stats.psum_rounds)
+            require(launched == S * rounds_run,
+                    f"S={S} {name}: {launched} range_rerank launches for "
+                    f"{rounds_run} rounds")
+            hits = (got.ids.to(torch.int64)[:, :, None]
+                    == gt_ids[:, None, :]).any(-1).sum(-1)
+            rate = float((got.dists <= c2 * gt_d + 1e-4).all(dim=1)
+                         .float().mean())
+            require(rate >= SUCCESS_PROBABILITY,
+                    f"S={S} {name}: c^2 guarantee held on {rate:.3f}")
+            shards[f"S{S}_{name}"] = dict(
+                rounds_run=rounds_run, range_rerank_launches=launched,
+                shard_candidates=got.stats.shard_candidates.tolist(),
+                merge_size=got.stats.merge_size,
+                padded_leaves=pdet.forest.n_leaves - det.forest.n_leaves)
+            quality[name] = dict(
+                recall_at_50=float(hits.float().mean()) / 50,
+                c2_guarantee_rate=rate,
+                rounds_mean=float(got.stats.rounds.float().mean()),
+                rounds_max=int(got.stats.rounds.max()),
+                n_candidates_mean=float(
+                    got.stats.n_candidates.float().mean()))
+        if S in (1, 4):
+            pdet_breakdown(torch, pdet, queries,
+                           fused["estimated"].stats.r_min)
+            warm[f"pdet_S{S}"] = host_ms(
+                torch, lambda: pdet.search(queries, requests["estimated"]))
+            warm[f"pdet_S{S}_scaled"] = host_ms(
+                torch, lambda: pdet.search(queries, requests["scaled"]))
+        if S == 4:
+            pdet4 = pdet
+        del pdet
+    warm["fused"] = host_ms(torch, lambda: det.search(
+        queries, dataclasses.replace(requests["estimated"], engine="fused")))
+    warm["fused_scaled"] = host_ms(torch, lambda: det.search(
+        queries, dataclasses.replace(requests["scaled"], engine="fused")))
+
+    try:
+        pdet4.search(queries, api.SearchRequest(k=50, engine="pdet",
+                                                probe_depth=2))
+        raise RuntimeError("check failed: engine='pdet' with probe_depth=2 "
+                           "did not raise")
+    except NotImplementedError:
+        pass
+    probed = pdet4.search(queries, api.SearchRequest(k=50, probe_depth=2))
+    require(probed.stats.engine == "fused",
+            f"'auto' with probe_depth=2 ran {probed.stats.engine}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pdet")
+        t0 = time.perf_counter()
+        pdet4.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = api.load(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    require(isinstance(loaded, PDETIndex) and loaded.n_shards == 1,
+            f"the S = 4 snapshot loaded as {loaded.n_shards} shards on "
+            f"{torch.cuda.device_count()} card(s), not 1")
+    del pdet4
+    resharded = PDETIndex.from_detlsh(
+        loaded, api.PlacementSpec(mesh_shape=(4,)),
+        mesh=mesh_from_placement(api.PlacementSpec(mesh_shape=(4,)),
+                                 devices=[cuda] * 4))
+    for name, req in requests.items():
+        for which, index in (("loaded", loaded), ("resharded", resharded)):
+            require(_same_answers(torch, index.search(queries, req),
+                                  fused[name]),
+                    f"{which} snapshot {name}: answers differ")
+    del loaded, resharded
+    out = dict(n=int(data.shape[0]), d=int(data.shape[1]),
+               B=int(queries.shape[0]), k=50, build_seconds=build_s,
+               build_stages=pdet1.build_seconds,
+               build_launches=build_launches, r_min=fused[
+                   "estimated"].stats.r_min, r_min_scaled=r_scale,
+               shards=shards, quality=quality, warm_ms=warm,
+               save_seconds=save_s, load_seconds=load_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    line("pdet_path", **out)
+    return out
+
+
 def _kernel_wrappers() -> dict:
     """Every kernel wrapper by name; each carries its ``launches`` count."""
-    from repro_torch.kernels import build_fused, l2_rerank, leaf_bounds
-    from repro_torch.kernels import range_rerank
+    from repro_torch.kernels import build_fused, encode_bins, l2_rerank
+    from repro_torch.kernels import leaf_bounds, lsh_project, range_rerank
     return {"encode_pack": build_fused.encode_pack,
             "project_encode_pack": build_fused.project_encode_pack,
             "range_rerank": range_rerank.range_rerank,
             "leaf_bounds": leaf_bounds.leaf_bounds,
-            "l2_rerank": l2_rerank.l2_rerank}
+            "l2_rerank": l2_rerank.l2_rerank,
+            "lsh_project": lsh_project.lsh_project,
+            "encode_bins": encode_bins.encode_bins}
 
 
 def _stream_counts() -> dict:
@@ -944,7 +1234,8 @@ def streaming_path(torch, n: int) -> dict:
         require(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
                 f"save -> load -> search ({name}) is not bit-identical")
     del loaded
-    launches = _stream_counts()
+    launches = {k: v for k, v in _stream_counts().items()
+                if k not in ("lsh_project", "encode_bins")}  # build-only
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the streaming path never launched: {launches}")
     require(launches["project_encode_pack"] == n_seals,
@@ -1014,7 +1305,19 @@ def main() -> int:
                                      "n=1M K=4"),
            check_project_encode_pack(torch, index.data[:16384].contiguous(),
                                      16, 4, 256, "seal")]
-    del index, queries, res, vres
+    lsh = [check_lsh_project(torch, index.data, index.A, "n=1M"),
+           check_lsh_project(torch, torch.randn(
+               (100_000, 960), generator=torch.Generator("cuda").manual_seed(
+                   9), device="cuda"), torch.randn(
+               (960, 64), generator=torch.Generator("cuda").manual_seed(10),
+               device="cuda"), "gist")]
+    ebins = check_encode_bins(
+        torch, torch.matmul(index.data, index.A),
+        index.forest.breakpoints.reshape(64, 257))
+    del res, vres
+    torch.cuda.empty_cache()
+    pdet = pdet_path(torch, index.data, queries)
+    del index, queries
     torch.cuda.empty_cache()
     stream = streaming_path(torch, n)
 
@@ -1059,6 +1362,22 @@ def main() -> int:
          "ms": pep[0]["ms"], "plain_ms": pep[0]["plain_ms"],
          "bound_ms": pep[0]["bound_ms"], "bound_by": pep[0]["bound_by"],
          "library_ms": None},
+        {"name": "lsh_project", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lsh_project.cu",
+         "replaces": "src/repro/kernels/lsh_project.py:27",
+         "launches": pdet["build_launches"]["lsh_project"],
+         "max_abs_err": max(x["max_abs_err"] for x in lsh),
+         "ms": lsh[0]["ms"], "plain_ms": lsh[0]["plain_ms"],
+         "bound_ms": lsh[0]["bound_ms"], "bound_by": lsh[0]["bound_by"],
+         "library_ms": lsh[0]["library_ms"]},
+        {"name": "encode_bins", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/encode_bins.cu",
+         "replaces": "src/repro/kernels/encode_bins.py:31",
+         "launches": pdet["build_launches"]["encode_bins"],
+         "max_abs_err": ebins["max_abs_err"],
+         "ms": ebins["ms"], "plain_ms": ebins["plain_ms"],
+         "bound_ms": ebins["bound_ms"], "bound_by": ebins["bound_by"],
+         "library_ms": ebins["library_ms"]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ persistence in the reference package's format::
     index = api.load("snapshots/my-index")          # no rebuild
 
 ``build`` and ``load`` run on CUDA unless given ``device=``; with neither
-a device nor a CUDA card they raise.
+a device nor a CUDA card they raise.  A spec with a ``placement`` builds
+the sharded PDET index (``core.distributed.PDETIndex``).
 """
 
 from __future__ import annotations
@@ -36,15 +37,17 @@ def build(data: Any, generator: Any = None, spec: Optional[IndexSpec] = None,
           *, device: Optional[Any] = None) -> Any:
     """Build an index from an ``IndexSpec`` on ``device``.
 
-    The static kind builds a ``core.DETLSH``, the streaming kind a
-    ``streaming.StreamingDETLSH``.  A ``placement`` (the sharded PDET
-    index) is a later slice of the port.
+    A static spec with a ``placement`` builds the sharded
+    ``core.distributed.PDETIndex`` (its devices: ``device='cpu'`` puts every
+    shard on the CPU, otherwise the first ``placement.n_devices`` cards;
+    ``PDETIndex.from_spec(..., mesh=)`` takes any device list); the static
+    kind builds a ``core.DETLSH``, the streaming kind a
+    ``streaming.StreamingDETLSH``.
     """
     spec = spec or IndexSpec()
     if spec.placement is not None:
-        raise NotImplementedError(
-            "IndexSpec.placement (the sharded PDET index) is not ported to "
-            "PyTorch yet; build without a placement")
+        from repro_torch.core.distributed import PDETIndex
+        return PDETIndex.from_spec(data, generator, spec, device=device)
     if spec.kind == "streaming":
         from repro_torch.streaming import StreamingDETLSH
         return StreamingDETLSH.from_spec(data, generator, spec,

@@ -13,13 +13,16 @@ the streaming kinds:
       segment_<id>.npz  (streaming) rows, gids, tombstones, forest
                         [+ fused-plan constants when materialized]
       memtable.npz      (streaming) delta rows / gids / live bitmap
+      common.npz        (pdet) A, breakpoints
+      shard_<i>.npz     (pdet) the shard's data rows and its slice of every
+                        position- and leaf-sharded forest array
 
 A snapshot written by either package loads in the other and answers
-identically.  Saves are atomic (files staged into a temp sibling
-directory, fsynced and published with ``os.replace``) and every file is
-checked against its recorded digest on load (``SnapshotIntegrityError``).
-Sharded (pdet) snapshots, and the pre-digest versions 1-2, raise
-``NotImplementedError`` in this slice of the port.
+identically; a pdet snapshot reshards on load to the devices present.
+Saves are atomic (files staged into a temp sibling directory, fsynced and
+published with ``os.replace``) and every file is checked against its
+recorded digest on load (``SnapshotIntegrityError``).  The pre-digest
+versions 1-2 raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import numpy as np
 
 FORMAT_NAME = "repro-ann-snapshot"
 FORMAT_VERSION = 3
-_NOT_YET_KINDS = ("pdet",)
+_SHARDED_KINDS = ("pdet",)
 
 
 class SnapshotFormatError(ValueError):
@@ -416,15 +419,133 @@ def _load_streaming(path: str, manifest: dict, device: Any) -> Any:
     return index
 
 
+_PDET_POINT_KEYS = ("point_ids", "proj_sorted", "codes_sorted", "valid")
+_PDET_LEAF_KEYS = ("leaf_lo", "leaf_hi", "leaf_valid")
+
+
+def save_pdet(index: Any, path: str) -> None:
+    """Snapshot a ``core.distributed.PDETIndex`` as per-shard files: one
+    ``shard_<i>.npz`` per layout shard (its data rows and its slice of every
+    position- or leaf-sharded forest array) plus the shard map in
+    MANIFEST.json, exactly as the reference writes them."""
+    forest = index.forest
+    S = index.placement.n_shards
+    n = index.data.shape[0]
+    # Positions and leaves divide exactly (the layout is padded to a shard
+    # multiple); data rows may not, so they split as evenly as possible.
+    pos = forest.point_ids.shape[1] // S
+    leaves = forest.leaf_valid.shape[1] // S
+    row_bounds = [round(s * n / S) for s in range(S + 1)]
+    files = {"common.npz": _npz_bytes(
+        {"A": _np(index.A), "breakpoints": _np(forest.breakpoints)})}
+    shard_entries = []
+    for s in range(S):
+        fname = f"shard_{s:05d}.npz"
+        arrays = {"data": _np(index.data[row_bounds[s]:row_bounds[s + 1]])}
+        for k in _PDET_POINT_KEYS:
+            arrays[k] = _np(getattr(forest, k)[:, s * pos:(s + 1) * pos])
+        for k in _PDET_LEAF_KEYS:
+            arrays[k] = _np(getattr(forest, k)[:, s * leaves:(s + 1) * leaves])
+        files[fname] = _npz_bytes(arrays)
+        shard_entries.append({
+            "shard": s, "file": fname,
+            "rows": [row_bounds[s], row_bounds[s + 1]],
+            "positions": [s * pos, (s + 1) * pos],
+            "leaves": [s * leaves, (s + 1) * leaves],
+        })
+    _publish_snapshot(path, files, {
+        "format": FORMAT_NAME,
+        "format_version": FORMAT_VERSION,
+        "kind": "pdet",
+        "params": dataclasses.asdict(index.params),
+        "forest": {"n": forest.n, "leaf_size": forest.leaf_size},
+        "spec": index.spec.to_dict() if index.spec is not None else None,
+        "placement": index.placement.to_dict(),
+        "shards": shard_entries,
+        "r_min_cache": _rmin_dump(index._r_min_cache),
+    })
+
+
+def _fit_placement(saved: Any, device: Any) -> Any:
+    """Reshard-on-load policy: keep the saved placement where the devices
+    hold it (the CPU holds any; CUDA needs one card a mesh device), else
+    the widest one-axis ('data',) placement over the cards present, so a
+    pdet snapshot loads anywhere; answers are the same either way."""
+    import torch
+    from repro_torch.api.spec import PlacementSpec
+    if device.type == "cpu":
+        return saved
+    avail = torch.cuda.device_count()
+    if saved.n_devices <= avail:
+        return saved
+    return PlacementSpec(mesh_shape=(avail,), mesh_axes=("data",))
+
+
+def _load_pdet(path: str, manifest: dict, placement: Any,
+               device: Any) -> Any:
+    import torch
+    from repro_torch._device import to_device
+    from repro_torch.api.spec import IndexSpec, PlacementSpec
+    from repro_torch.core import FOREST_DTYPES, DETLSH
+    from repro_torch.core.detree import DEForest
+    from repro_torch.core.distributed import PDETIndex
+
+    common = _load_npz(path, "common.npz")
+    entries = _field(manifest, "shards", list, path)
+    entries = sorted(entries, key=lambda e: _field(e, "shard", int, path))
+    shards = [_load_npz(path, _field(e, "file", str, path)) for e in entries]
+    fmeta = _field(manifest, "forest", dict, path)
+    forest = DEForest(
+        n=_field(fmeta, "n", int, path),
+        leaf_size=_field(fmeta, "leaf_size", int, path),
+        breakpoints=to_device(common["breakpoints"], device, torch.float32),
+        **{k: to_device(np.concatenate([sh[k] for sh in shards], axis=1),
+                        device, FOREST_DTYPES[k])
+           for k in _PDET_POINT_KEYS + _PDET_LEAF_KEYS})
+    data = to_device(np.concatenate([sh["data"] for sh in shards], axis=0),
+                     device, torch.float32)
+    spec = manifest.get("spec")
+    spec = IndexSpec.from_dict(spec) if spec is not None else None
+    det = DETLSH(params=_params_from(manifest, path),
+                 A=to_device(common["A"], device, torch.float32),
+                 forest=forest, data=data,
+                 spec=(dataclasses.replace(spec, placement=None)
+                       if spec is not None else None))
+    det._r_min_cache.update(_rmin_load(manifest.get("r_min_cache")))
+    try:
+        saved = PlacementSpec.from_dict(
+            _field(manifest, "placement", dict, path))
+    except SnapshotFormatError:
+        raise
+    except (TypeError, ValueError, KeyError) as exc:
+        raise SnapshotFormatError(
+            f"{path!r}: manifest field 'placement' does not describe a "
+            f"PlacementSpec ({type(exc).__name__}: {exc})") from exc
+    eff = placement if placement is not None else _fit_placement(saved,
+                                                                 device)
+    # The attached spec describes the index as it now lives: a resharded
+    # load carries the effective placement, not the saved one.
+    if spec is not None and spec.placement != eff:
+        spec = dataclasses.replace(spec, placement=eff)
+    return PDETIndex.from_detlsh(det, eff, spec=spec)
+
+
 def save(index: Any, path: str) -> None:
     """Snapshot an index (dispatch lives on the index: calls ``save``)."""
     index.save(path)
 
 
-def load(path: str, *, device: Optional[Any] = None) -> Any:
+def load(path: str, placement: Any = None, *,
+         device: Optional[Any] = None) -> Any:
     """Read a snapshot directory back into a live index on ``device``
-    (CUDA unless the caller asks otherwise): a ``core.DETLSH`` or a
-    ``streaming.StreamingDETLSH`` according to the manifest's ``kind``.
+    (CUDA unless the caller asks otherwise): a ``core.DETLSH``, a
+    ``streaming.StreamingDETLSH`` or a ``core.distributed.PDETIndex``
+    according to the manifest's ``kind``.
+
+    ``placement`` applies to sharded (pdet) snapshots only and overrides
+    the reshard-on-load policy (the saved placement where the devices hold
+    it, else the widest ('data',) placement over the cards present; on the
+    CPU every shard count fits).  Answers are the same either way.
 
     Raises ``SnapshotFormatError`` on any format mismatch and
     ``SnapshotIntegrityError`` when a file's bytes no longer match the
@@ -436,10 +557,11 @@ def load(path: str, *, device: Optional[Any] = None) -> Any:
     manifest = _read_manifest(path)
     _verify_digests(path, manifest)
     kind = manifest.get("kind")
-    if kind in _NOT_YET_KINDS:
-        raise NotImplementedError(
-            f"{path!r}: {kind!r} snapshots load in the reference package; "
-            f"the PyTorch port reads the static and streaming kinds")
+    if kind in _SHARDED_KINDS:
+        return _load_pdet(path, manifest, placement, dev)
+    if placement is not None:
+        raise ValueError(f"placement= only applies to sharded (pdet) "
+                         f"snapshots; this one is kind={kind!r}")
     if kind == "static":
         return _load_static(path, manifest, dev)
     if kind == "streaming":

@@ -1,9 +1,8 @@
 """The AnnIndex protocol — the one index surface.
 
-``core.DETLSH`` (static) and ``streaming.StreamingDETLSH`` satisfy
-``AnnIndex``, as the sharded index will when its slice of the port lands;
-the streaming index, being mutable, additionally satisfies
-``MutableAnnIndex``.  Serving talks only to these
+``core.DETLSH`` (static), ``core.distributed.PDETIndex`` (sharded) and
+``streaming.StreamingDETLSH`` satisfy ``AnnIndex``; the streaming index,
+being mutable, additionally satisfies ``MutableAnnIndex``.  Serving talks only to these
 protocols — capability checks are ``isinstance`` against a protocol, never
 ``hasattr`` duck-typing.
 

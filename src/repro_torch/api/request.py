@@ -109,6 +109,13 @@ class SearchStats(NamedTuple):
     rounds: Any              # (B,) int32 — radius enlargements + 1 per lane
     n_candidates: Any        # (B,) int32 — |S| at termination
     final_r: Any             # (B,) f32
+    shard_candidates: Any = None  # (n_shards,) f32 — (point, tree) entries
+    #                               scanned per shard, summed over lanes and
+    #                               rounds (pdet engine only)
+    psum_rounds: Any = None       # () int32 — lockstep radius rounds, each
+    #                               ending in one cross-shard merge (pdet)
+    merge_size: Any = None        # int — elements of each cross-shard merge
+    #                               (the B x n table; pdet)
     probed_leaves: Any = None     # (B,) int32 — near-miss leaves admitted
     probe_candidates: Any = None  # (B,) int32 — their candidates
 

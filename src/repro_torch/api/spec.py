@@ -3,13 +3,14 @@
 The fields, their defaults and the values they accept are the reference
 package's, so a snapshot's ``spec`` dict round-trips between the two
 packages (``to_dict``/``from_dict``).  The port builds the static and
-the streaming kinds; a ``placement`` (the sharded PDET index) is accepted
-here and refused at build.
+the streaming kinds, and a static spec with a ``placement`` builds the
+sharded PDET index.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 from repro_torch.api import registry
@@ -57,6 +58,17 @@ class PlacementSpec:
                              f"mesh axes without repeats, got {data_axes!r}")
         object.__setattr__(self, "data_axes", data_axes)
 
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.mesh_shape)
+
+    @property
+    def n_shards(self) -> int:
+        """Product of mesh sizes over the data axes: the shard count the
+        index layout (and the sharded snapshot) is cut into."""
+        sizes = dict(zip(self.mesh_axes, self.mesh_shape))
+        return math.prod(sizes[a] for a in self.data_axes)
+
     def to_dict(self) -> dict:
         return {"mesh_shape": list(self.mesh_shape),
                 "mesh_axes": list(self.mesh_axes),
@@ -86,11 +98,12 @@ class IndexSpec:
     ``build_impl`` (``encode_impl`` where ``build_impl`` is 'auto'), as the
     reference's does: 'auto'/'pallas' run the ``encode_pack`` kernel on a
     CUDA tensor (its plain version on a CPU one), 'xla'/'pallas_interpret'
-    its plain version on either device.  ``project_impl`` in the pallas
-    names asks for the ``lsh_project`` kernel, and ``encode_impl`` in the
-    pallas names with the reference builder for ``encode_bins``: neither is
-    ported yet, so such a build raises ``NotImplementedError`` (loading a
-    snapshot with such a spec works: nothing is projected at load).
+    its plain version on either device.  ``project_impl='pallas'`` runs the
+    build's projection through the ``lsh_project`` kernel, and the reference
+    builder with ``encode_impl='pallas'`` encodes through ``encode_bins``
+    (each on a CUDA tensor; the plain version on a CPU one, and on either
+    device for 'pallas_interpret').  A ``placement`` builds the sharded
+    ``core.distributed.PDETIndex`` over the placement's devices.
     ``block_*`` and ``build_chunk`` are the reference's TPU tiling choices,
     kept for the round trip and unused by the port's kernels, which tile
     themselves.
@@ -158,23 +171,6 @@ class IndexSpec:
                     f"placement is only supported for kind='static' (the "
                     f"sharded PDET index); kind={self.kind!r} cannot be "
                     f"placed on a mesh yet")
-
-    def check_buildable(self) -> None:
-        """Raise ``NotImplementedError`` where this spec asks for a kernel
-        the port has not ported yet (see ROADMAP.md, Queue 2)."""
-        pallas = ("pallas", "pallas_interpret")
-        if self.project_impl in pallas:
-            raise NotImplementedError(
-                f"project_impl={self.project_impl!r} runs the lsh_project "
-                f"kernel, which is not ported to CUDA yet (ROADMAP.md "
-                f"Queue 2, kernels/lsh_project.py); build with "
-                f"project_impl='auto'")
-        if self.build_impl == "reference" and self.encode_impl in pallas:
-            raise NotImplementedError(
-                f"build_impl='reference' with encode_impl="
-                f"{self.encode_impl!r} runs the encode_bins kernel, which "
-                f"is not ported to CUDA yet (ROADMAP.md Queue 2, "
-                f"kernels/encode_bins.py); use encode_impl='auto'")
 
     def derive_params(self) -> Any:
         """Solve the Lemma 3 system for this spec -> ``LSHParams``."""

@@ -102,11 +102,15 @@ class DETLSH:
               params: Optional[LSHParams] = None, *,
               Nr: int = encoding.DEFAULT_NR, leaf_size: int = 64,
               breakpoint_method: str = "sample_sort",
-              build_impl: str = "auto", encode_impl: str = "auto",
+              project_impl: str = "auto", build_impl: str = "auto",
+              encode_impl: str = "auto",
               device: Optional[Any] = None) -> "DETLSH":
         """One-shot static build (Alg. 1 + 2) on ``device`` (CUDA unless
         the caller asks otherwise).  ``generator`` draws A and then the
-        breakpoint sample; None means a CPU generator seeded with 0."""
+        breakpoint sample; None means a CPU generator seeded with 0.
+        ``project_impl`` picks the projection (``hashing.project``: 'pallas'
+        runs the ``lsh_project`` kernel), ``build_impl``/``encode_impl`` the
+        builder and its encode step (``detree.build_forest``)."""
         dev = resolve_device(device)
         params = params or derive_params()
         if generator is None:
@@ -116,7 +120,7 @@ class DETLSH:
         x = to_device(data, dev, torch.float32)
         A = hashing.sample_projections(generator, x.shape[1], params.K,
                                        params.L, dev)
-        proj = hashing.project(x, A)
+        proj = hashing.project(x, A, impl=project_impl)
         clock.lap("projection")
         forest = build_forest(proj, params.K, params.L, Nr=Nr,
                               leaf_size=leaf_size,
@@ -133,10 +137,10 @@ class DETLSH:
         if spec.kind != "static":
             raise ValueError(f"DETLSH.from_spec needs kind='static', got "
                              f"{spec.kind!r} (use repro_torch.api.build)")
-        spec.check_buildable()
         idx = cls.build(data, generator, spec.derive_params(), Nr=spec.Nr,
                         leaf_size=spec.leaf_size,
                         breakpoint_method=spec.breakpoint_method,
+                        project_impl=spec.project_impl,
                         build_impl=spec.build_impl,
                         encode_impl=spec.encode_impl, device=device)
         idx.spec = spec

@@ -11,8 +11,9 @@ Build pipeline: the ``encode_pack`` kernel turns the (n, L*K) projections
 into per-tree layouts plus two 32-bit interleaved key words; ONE stable
 sort of a 64-bit key orders all L trees at once; a vectorized gather
 assembles the sorted forest and its leaf summaries.  ``build_impl=
-'reference'`` keeps the per-tree double-argsort path as the in-port oracle;
-both give bit-identical forests.
+'reference'`` keeps the paper's per-tree path (encode every column, then a
+double argsort per tree) as the in-port oracle; both give bit-identical
+forests.
 """
 
 from __future__ import annotations
@@ -258,14 +259,17 @@ def build_forest(proj_all: torch.Tensor, K: int, L: int, *,
     and encodes with the given frozen edges, so a caller can feed the same
     projections and breakpoints into this builder and the reference one.
 
-    ``build_impl='reference'`` runs the per-tree double-argsort path; every
-    other value runs the fused pipeline.  Its ``encode_pack`` step follows
-    ``build_impl``, or ``encode_impl`` where ``build_impl`` is 'auto', as
-    the reference's does: 'auto'/'pallas' launch the CUDA kernel for a CUDA
-    tensor (the plain version for a CPU one); 'xla'/'pallas_interpret' run
-    the plain version on either device.  ``stage_seconds``, when given,
-    receives the seconds of each stage (breakpoints, encode_pack, sort,
-    assemble).
+    ``build_impl='reference'`` runs the paper's per-tree path: all L*K
+    columns encoded at once through ``encoding.encode(impl=encode_impl)``
+    (the ``encode_bins`` kernel for 'pallas' on a CUDA tensor), then a
+    double stable argsort per tree.  Every other value runs the fused
+    pipeline.  Its ``encode_pack`` step follows ``build_impl``, or
+    ``encode_impl`` where ``build_impl`` is 'auto', as the reference's does:
+    'auto'/'pallas' launch the CUDA kernel for a CUDA tensor (the plain
+    version for a CPU one); 'xla'/'pallas_interpret' run the plain version
+    on either device.  ``stage_seconds``, when given, receives the seconds
+    of each stage (breakpoints, then encode_pack, sort, assemble, or for
+    the reference builder encode, trees).
     """
     n = proj_all.shape[0]
     if proj_all.shape[1] != L * K:
@@ -286,14 +290,17 @@ def build_forest(proj_all: torch.Tensor, K: int, L: int, *,
     clock.lap("breakpoints")
 
     if build_impl == "reference":
-        codes_all = enc.encode(proj_all, bp_all)                    # (n, L*K)
+        codes_all = enc.encode(proj_all, bp_all, impl=encode_impl)  # (n, L*K)
+        clock.lap("encode")
         proj_t = proj_all.reshape(n, L, K).permute(1, 0, 2)
         codes_t = codes_all.reshape(n, L, K).permute(1, 0, 2)
         trees = [build_tree(proj_t[l], codes_t[l], bp_t[l], leaf_size)
                  for l in range(L)]
-        return DEForest(n=n, leaf_size=leaf_size,
-                        **{k: torch.stack([t[k] for t in trees])
-                           for k in trees[0]})
+        forest = DEForest(n=n, leaf_size=leaf_size,
+                          **{k: torch.stack([t[k] for t in trees])
+                             for k in trees[0]})
+        clock.lap("trees")
+        return forest
 
     impl = build_impl
     if impl == "auto" and encode_impl != "auto":

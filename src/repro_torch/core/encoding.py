@@ -170,11 +170,20 @@ def select_breakpoints(coords: torch.Tensor, Nr: int = DEFAULT_NR, *,
     raise ValueError(f"unknown breakpoint method: {method}")
 
 
-def encode(coords: torch.Tensor, breakpoints: torch.Tensor) -> torch.Tensor:
+def encode(coords: torch.Tensor, breakpoints: torch.Tensor, *,
+           impl: str = "auto") -> torch.Tensor:
     """Encode coords (n, D) with breakpoints (D, Nr+1) -> region ids (n, D).
 
     Region b satisfies B[d, b] <= x <= B[d, b+1] (int32 in [0, Nr-1]).
+    impl: 'auto'/'xla' -> a row-wise ``torch.searchsorted``; 'pallas' -> the
+    ``encode_bins`` kernel on a CUDA tensor (its plain version, this
+    searchsorted, on a CPU one); 'pallas_interpret' -> the plain version on
+    either device.
     """
+    if impl in ("pallas", "pallas_interpret"):
+        from repro_torch.kernels import ops
+        return ops.encode_bins(coords, breakpoints,
+                               interpret=(impl == "pallas_interpret"))
     Nr = breakpoints.shape[1] - 1
     bins = _searchsorted_rows(breakpoints[:, 1:Nr], coords)
     return torch.clamp(bins, 0, Nr - 1).to(torch.int32)

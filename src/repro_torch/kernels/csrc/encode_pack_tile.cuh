@@ -6,7 +6,8 @@
 // memory, laid out (kRows, D + 1) with D = L*K (the +1 column keeps a warp's
 // 32 rows of one dim in 32 different banks).  From there:
 //   1. one thread per (row, projected dim) binary-searches that dim's inner
-//      edges, the 32 lanes of a warp on the 32 rows of ONE dim, so a warp's
+//      edges (count_le, shared with encode_bins.cu), the 32 lanes of a warp
+//      on the 32 rows of ONE dim, so a warp's
 //      edge loads fall in one 1 KB edge row (a few cache lines, broadcast in
 //      the first steps) instead of 32 rows of 32 dims.  The edge table is
 //      read through the read-only path (__ldg), where it stays in L1/L2;
@@ -30,6 +31,25 @@ namespace encode_pack_tile {
 
 constexpr int kRows = 32;      // = warp size: a warp searches one dim
 constexpr int kThreads = 256;
+
+// #(edges[0 .. n_edges-1] <= x) for non-decreasing edges, n_edges >= 1:
+// searchsorted(side='right'), and so the reference's compare-accumulate
+// count.  A branch-free binary search (binary lifting): floor(log2 n_edges)
+// + 1 steps whatever x is, each a clamped load and a select.  kReadOnly
+// reads edges in device memory through the read-only path (__ldg); false
+// reads them where they are (shared memory).
+template <bool kReadOnly>
+__device__ __forceinline__ int count_le(const float* edges, int n_edges,
+                                        float x) {
+  int pos = 0;
+  for (int step = 1 << (31 - __clz(n_edges)); step > 0; step >>= 1) {
+    const int probe = pos + step;
+    const float* at = edges + min(probe, n_edges) - 1;
+    const float e = kReadOnly ? __ldg(at) : *at;
+    pos = (probe <= n_edges && e <= x) ? probe : pos;
+  }
+  return pos;
+}
 
 __device__ __forceinline__ uint32_t pack_word(const uint8_t* codes, int K,
                                               int start_bit, int nbits) {
@@ -71,12 +91,8 @@ __device__ __forceinline__ void encode_and_pack(
     if (r >= rows) continue;
     const float x = x_s[r * DP + c];
     const float* edges = bp + static_cast<int64_t>(c) * E + 1;  // inner edges
-    int lo = 0, hi = Nr - 1;
-    while (lo < hi) {                     // count of inner edges <= x
-      const int mid = (lo + hi) >> 1;
-      if (__ldg(edges + mid) <= x) lo = mid + 1; else hi = mid;
-    }
-    codes_s[r * DP + c] = static_cast<uint8_t>(lo);
+    codes_s[r * DP + c] = static_cast<uint8_t>(count_le<true>(edges, Nr - 1,
+                                                              x));
   }
   __syncthreads();
 

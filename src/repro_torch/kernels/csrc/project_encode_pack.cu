@@ -24,39 +24,36 @@
 // flip codes).
 //
 // Design: one block per tile of kRows = 32 rows, as encode_pack.  The
-// tile of x is staged in shared memory with coalesced loads; each thread
-// accumulates one projected dim for 8 rows of the tile in registers (the
-// dim's column of a is read once per step for all 8 rows through the
-// read-only path, where the 32 KB of a stay cached; the rows' x values
-// come as float4 broadcasts from shared memory) and writes them into the
-// (kRows, L*K + 1) tile that encode_pack_tile.cuh encodes and packs.  A
-// block holds 27 KB of shared memory and 32 registers a thread, so 8
-// blocks share an SM and one block's projection overlaps another's
-// encode.  Staging all of a in shared memory instead (60 KB a block, a
-// persistent grid, 3 blocks an SM) took 2.81-2.93 ms at n = 1M against
-// this design's 1.77-1.79 ms, in one run on an H100 (chip_smoke.py's
-// project_encode_pack check; PERF.md).
+// projection stage (project_tile.cuh, shared with lsh_project.cu) stages
+// the tile's rows of x in shared memory and has each thread accumulate one
+// projected dim for 8 rows in registers, reading the dim's column of a
+// through the read-only path; the sums land in the (kRows, L*K + 1) tile
+// that encode_pack_tile.cuh encodes and packs.  A block holds 27 KB of
+// shared memory and 32 registers a thread, so 8 blocks share an SM and one
+// block's projection overlaps another's encode.  Staging all of a in shared
+// memory instead (60 KB a block, a persistent grid, 3 blocks an SM) took
+// 2.81-2.93 ms at n = 1M against this design's 1.77-1.79 ms, in one run on
+// an H100 (chip_smoke.py's project_encode_pack check; PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "encode_pack_tile.cuh"
+#include "project_tile.cuh"
 
 namespace {
 
 using encode_pack_tile::kRows;
 using encode_pack_tile::kThreads;
+using project_tile::kRowGroups;
+using project_tile::kRowsPerItem;
+using project_tile::padded;
 
-constexpr int kRowGroups = 4;                    // a thread's rows: rq + 4*i
-constexpr int kRowsPerItem = kRows / kRowGroups;  // 8 accumulators a thread
+static_assert(project_tile::kRows == kRows, "one tile height for both");
 constexpr size_t kMaxSmem = 232448;              // 227 KB a block on an H100
 
-__host__ __device__ inline int padded_d(int d) {  // float4 rows
-  return (d + 3) & ~3;
-}
-
 size_t smem_bytes(int d, int D) {
-  return sizeof(float) * static_cast<size_t>(kRows) * padded_d(d)
+  return sizeof(float) * static_cast<size_t>(kRows) * padded(d)
          + encode_pack_tile::tile_bytes(D);
 }
 
@@ -69,51 +66,22 @@ __global__ void __launch_bounds__(kThreads) project_encode_pack_kernel(
   extern __shared__ __align__(16) float smem[];
   const int D = L * K;
   const int DP = D + 1;
-  const int dp = padded_d(d);
-  float* xin_s = smem;                           // (kRows, dp) rows of x
-  float* x_s = xin_s + kRows * dp;               // (kRows, D + 1) projections
+  float* xin_s = smem;                           // (kRows, padded(d)) x
+  float* x_s = xin_s + kRows * padded(d);        // (kRows, D + 1) projections
   uint8_t* codes_s = reinterpret_cast<uint8_t*>(x_s + kRows * DP);
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
   const int rows = static_cast<int>(min(static_cast<int64_t>(kRows),
                                         n - row0));
 
-  const float* src = x + row0 * d;
-  for (int e = threadIdx.x; e < kRows * d; e += blockDim.x) {
-    const int r = e / d;                         // rows past the end: zeros
-    xin_s[r * dp + (e - r * d)] = r < rows ? src[e] : 0.f;
-  }
+  project_tile::stage_rows(x, d, row0, rows, 0, d, xin_s);
   __syncthreads();
-
   for (int w = threadIdx.x; w < kRowGroups * D; w += blockDim.x) {
     const int c = w % D;
     const int rq = w / D;
-    const float* ac = a + c;                     // column c, stride D
     float acc[kRowsPerItem];
 #pragma unroll
     for (int i = 0; i < kRowsPerItem; ++i) acc[i] = 0.f;
-    int j = 0;
-    for (; j + 4 <= d; j += 4) {                 // sums stay in j order
-      const float a0 = __ldg(ac + (j + 0) * D);
-      const float a1 = __ldg(ac + (j + 1) * D);
-      const float a2 = __ldg(ac + (j + 2) * D);
-      const float a3 = __ldg(ac + (j + 3) * D);
-#pragma unroll
-      for (int i = 0; i < kRowsPerItem; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(
-            xin_s + (rq + kRowGroups * i) * dp + j);
-        acc[i] = __fadd_rn(acc[i], __fmul_rn(xv.x, a0));
-        acc[i] = __fadd_rn(acc[i], __fmul_rn(xv.y, a1));
-        acc[i] = __fadd_rn(acc[i], __fmul_rn(xv.z, a2));
-        acc[i] = __fadd_rn(acc[i], __fmul_rn(xv.w, a3));
-      }
-    }
-    for (; j < d; ++j) {
-      const float aj = __ldg(ac + j * D);
-#pragma unroll
-      for (int i = 0; i < kRowsPerItem; ++i)
-        acc[i] = __fadd_rn(acc[i], __fmul_rn(
-            xin_s[(rq + kRowGroups * i) * dp + j], aj));
-    }
+    project_tile::accumulate(xin_s, d, a + c, D, rq, acc);
 #pragma unroll
     for (int i = 0; i < kRowsPerItem; ++i)
       x_s[(rq + kRowGroups * i) * DP + c] = acc[i];

@@ -15,8 +15,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build_fused as _bf
+from repro_torch.kernels import encode_bins as _enc
 from repro_torch.kernels import l2_rerank as _l2
 from repro_torch.kernels import leaf_bounds as _lb
+from repro_torch.kernels import lsh_project as _proj
 from repro_torch.kernels import range_rerank as _rr
 from repro_torch.kernels import ref as _ref
 
@@ -28,6 +30,24 @@ def _on_cuda(t: torch.Tensor) -> bool:
         return False
     raise ValueError(f"no kernel for device {t.device}: the port runs on "
                      f"cuda, or on cpu through the plain versions")
+
+
+def lsh_project(x: torch.Tensor, a: torch.Tensor, *,
+                interpret: bool = False) -> torch.Tensor:
+    """p-stable projection x (n, d) @ a (d, m) -> (n, m) f32, summed in d
+    order (see kernels/lsh_project.py); f32 or bf16 inputs."""
+    if interpret or not _on_cuda(x):
+        return _ref.lsh_project(x, a)
+    return _proj.lsh_project(x, a)
+
+
+def encode_bins(coords: torch.Tensor, breakpoints: torch.Tensor, *,
+                interpret: bool = False) -> torch.Tensor:
+    """iSAX region ids: coords (n, D), breakpoints (D, Nr+1) -> (n, D)
+    int32 (see kernels/encode_bins.py)."""
+    if interpret or not _on_cuda(coords):
+        return _ref.encode_bins(coords, breakpoints)
+    return _enc.encode_bins(coords, breakpoints)
 
 
 def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,

@@ -43,15 +43,32 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
 
 def project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """x (n, d) @ a (d, D) in f32, summed over d in index order with one
-    rounded product and one rounded sum a step, as the CUDA
-    ``project_encode_pack`` kernel does (``__fadd_rn(acc, __fmul_rn(x, a))``).
-    One ulp of a projection can flip a code at an edge, so the kernel and
-    this version must agree bit for bit, not within a tolerance."""
+    rounded product and one rounded sum a step, as the CUDA ``lsh_project``
+    and ``project_encode_pack`` kernels do
+    (``__fadd_rn(acc, __fmul_rn(x, a))``).  One ulp of a projection can flip
+    a code at an edge, so the kernels and this version must agree bit for
+    bit, not within a tolerance."""
     acc = torch.zeros((x.shape[0], a.shape[1]), dtype=torch.float32,
                       device=x.device)
     for j in range(x.shape[1]):                # fixed order, no contraction
         acc = acc + x[:, j, None] * a[j]
     return acc
+
+
+def lsh_project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The projection kernel's function: x (n, d) @ a (d, m) -> (n, m) f32
+    by :func:`project`.  bf16 inputs widen to f32 first, where their
+    products are exact."""
+    return project(x.to(torch.float32), a.to(torch.float32))
+
+
+def encode_bins(coords: torch.Tensor, breakpoints: torch.Tensor
+                ) -> torch.Tensor:
+    """iSAX region ids, coords (n, D), breakpoints (D, Nr+1) -> (n, D)
+    int32: #(inner edges <= x), clipped to [0, Nr-1] -- the port's
+    ``core.encoding.encode``, the semantics of record."""
+    from repro_torch.core.encoding import encode
+    return encode(coords, breakpoints)
 
 
 def project_encode_pack(x: torch.Tensor, a: torch.Tensor,

@@ -188,14 +188,17 @@ class StreamingDETLSH:
               delta_capacity: int = 512, max_segments: int = 4,
               id_capacity: Optional[int] = None,
               breakpoint_method: str = "sample_sort",
-              encode_impl: str = "auto", build_impl: str = "auto",
+              project_impl: str = "auto", encode_impl: str = "auto",
+              build_impl: str = "auto",
               device: Optional[Any] = None) -> "StreamingDETLSH":
         """Static base build (Alg. 1 + 2) on ``device`` (CUDA unless the
         caller asks otherwise) that also freezes the breakpoints every
         later seal will encode with.  ``generator`` draws A and then the
         breakpoint sample, as ``DETLSH.build`` does; None means a CPU
-        generator seeded with 0.  ``build_impl`` selects the builder of the
-        base build and of every later seal."""
+        generator seeded with 0.  ``project_impl`` picks the base build's
+        projection ('pallas': the ``lsh_project`` kernel), as in the
+        reference; ``build_impl`` selects the builder of the base build and
+        of every later seal."""
         dev = resolve_device(device)
         params = params or derive_params()
         if generator is None:
@@ -205,7 +208,7 @@ class StreamingDETLSH:
         n, d = x.shape
         t0 = time.perf_counter()
         A = hashing.sample_projections(generator, d, params.K, params.L, dev)
-        proj = hashing.project(x, A)
+        proj = hashing.project(x, A, impl=project_impl)
         bp_all = enc.select_breakpoints(proj, Nr, method=breakpoint_method,
                                         generator=generator)
         if dev.type == "cuda":
@@ -232,13 +235,13 @@ class StreamingDETLSH:
             raise ValueError(f"StreamingDETLSH.from_spec needs "
                              f"kind='streaming', got {spec.kind!r} "
                              f"(use repro_torch.api.build)")
-        spec.check_buildable()
         idx = cls.build(data, generator, spec.derive_params(), Nr=spec.Nr,
                         leaf_size=spec.leaf_size,
                         delta_capacity=spec.delta_capacity,
                         max_segments=spec.max_segments,
                         id_capacity=spec.id_capacity,
                         breakpoint_method=spec.breakpoint_method,
+                        project_impl=spec.project_impl,
                         encode_impl=spec.encode_impl,
                         build_impl=spec.build_impl, device=device)
         idx.spec = spec

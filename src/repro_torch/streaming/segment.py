@@ -192,10 +192,10 @@ def build_segment(data: Any, gids: Any, A: torch.Tensor,
     ``project_encode_pack`` pass plus the sort and the leaf summaries
     (:func:`_fused_seal`); an explicit ``project_impl`` picks kernel or
     plain version there when ``build_impl`` is 'auto', as in the
-    reference.  A projection outside the fused pass is ``torch.matmul``:
-    ``project_impl`` in the pallas names asks for the unported
-    ``lsh_project`` kernel there and raises.  ``stage_seconds``, when
-    given, receives the seconds of each stage, each ended by a device sync.
+    reference.  A projection outside the fused pass goes through
+    ``hashing.project(impl=project_impl)``: 'pallas' runs the
+    ``lsh_project`` kernel there.  ``stage_seconds``, when given, receives
+    the seconds of each stage, each ended by a device sync.
     """
     # to_device copies host rows: seal() hands over the memtable's arrays,
     # which are zeroed right after, and the segment must own its rows.
@@ -216,12 +216,7 @@ def build_segment(data: Any, gids: Any, A: torch.Tensor,
                           breakpoints=bp_seg.reshape(L, K, Nr + 1), **arrays)
     else:
         if proj is None:
-            if project_impl in ("pallas", "pallas_interpret"):
-                raise NotImplementedError(
-                    f"project_impl={project_impl!r} outside the fused seal "
-                    f"runs the lsh_project kernel, which is not ported to "
-                    f"CUDA yet")
-            proj = hashing.project(data, A)                   # (m, L*K)
+            proj = hashing.project(data, A, impl=project_impl)  # (m, L*K)
         out_lo = proj < bp_all[:, 0][None, :]
         out_hi = proj > bp_all[:, -1][None, :]
         clip_fraction = _clip_fraction(out_lo | out_hi)

@@ -321,3 +321,168 @@ def test_streaming_searches_on_the_card_match_plain_versions(cuda):
                                    atol=1e-4 * max_sq)
         dead = {int(x) for x in np.arange(0, 300, 4)} | {int(x) for x in g[::5]}
         assert not set(kern.ids.flatten().tolist()) & dead
+
+
+# ---------------------------------------------------------------------------
+# lsh_project, encode_bins and the sharded PDET index on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,m", [(256, 128, 128), (300, 100, 64),
+                                   (512, 960, 64), (1, 17, 3),
+                                   (3001, 1700, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lsh_project_kernel_bit_identical(cuda, n, d, m, dtype):
+    """The reference's sweep (and a d wider than one staged chunk, m over
+    one column tile): the kernel equals the plain d-order sum bit for bit,
+    bf16 inputs widened exactly."""
+    from repro_torch.kernels import lsh_project as lpk
+    gen = torch.Generator(cuda).manual_seed(n + d)
+    x = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    a = torch.randn((d, m), generator=gen, device=cuda).to(dtype)
+    before = lpk.lsh_project.launches
+    got = ops.lsh_project(x, a)
+    assert lpk.lsh_project.launches == before + 1
+    want = ref.lsh_project(x, a)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(ops.lsh_project(x, a, interpret=True), want)
+    assert lpk.lsh_project.launches == before + 1
+
+
+@pytest.mark.parametrize("n,D,Nr", [(512, 64, 256), (700, 16, 64),
+                                    (64, 4, 16), (1024, 128, 256),
+                                    (5000, 200, 256)])
+def test_encode_bins_kernel_bit_identical(cuda, n, D, Nr):
+    """The reference's sweep (and a panel too wide for one block, D = 200
+    at Nr = 256): codes equal the plain searchsorted bit for bit, at edges
+    and outside the outer edges too."""
+    from repro_torch.kernels import encode_bins as ebk
+    gen = torch.Generator(cuda).manual_seed(n + D)
+    coords = torch.randn((n, D), generator=gen, device=cuda) * 3.0
+    bp = torch.sort(torch.randn((D, Nr + 1), generator=gen, device=cuda)
+                    * 3.0, dim=1, stable=True).values
+    coords[0] = bp[:, 1]                          # exactly on an inner edge
+    coords[1] = bp[:, Nr // 2]
+    before = ebk.encode_bins.launches
+    got = ops.encode_bins(coords, bp)
+    assert ebk.encode_bins.launches == before + 1
+    want = ref.encode_bins(coords, bp)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_build_kernels_refuse_bad_inputs(cuda):
+    from repro_torch.kernels import encode_bins as ebk
+    from repro_torch.kernels import lsh_project as lpk
+    x = torch.zeros((8, 4), device=cuda)
+    with pytest.raises(TypeError):
+        lpk.lsh_project(x.double(), torch.zeros((4, 3), device=cuda))
+    with pytest.raises(ValueError):
+        lpk.lsh_project(x, torch.zeros((5, 3), device=cuda))
+    with pytest.raises(ValueError):
+        lpk.lsh_project(x, torch.zeros((4, 3)))
+    with pytest.raises(ValueError):
+        ebk.encode_bins(x, torch.zeros((4, 2), device=cuda))
+    with pytest.raises(TypeError):
+        ebk.encode_bins(x.double(), torch.zeros((4, 9), device=cuda))
+
+
+def test_reference_builder_on_the_card_launches_both_kernels(cuda):
+    """project_impl='pallas' with the reference builder and a pallas encode
+    launches lsh_project and encode_bins once each, encode_pack never, and
+    builds the fused builder's forest from the same projection."""
+    import repro_torch.api as api
+    from repro_torch.kernels import encode_bins as ebk
+    from repro_torch.kernels import lsh_project as lpk
+    rng = np.random.default_rng(11)
+    data = rng.standard_normal((5000, 48)).astype(np.float32)
+    spec = api.IndexSpec(K=8, L=3, leaf_size=32, Nr=128,
+                         project_impl="pallas", build_impl="reference",
+                         encode_impl="pallas")
+    counts = (lpk.lsh_project.launches, ebk.encode_bins.launches,
+              build_fused.encode_pack.launches)
+    idx = api.build(data, torch.Generator().manual_seed(0), spec,
+                    device=cuda)
+    moved = (lpk.lsh_project.launches - counts[0],
+             ebk.encode_bins.launches - counts[1],
+             build_fused.encode_pack.launches - counts[2])
+    assert moved == (1, 1, 0)
+    proj = ref.project(torch.tensor(data, device=cuda), idx.A)
+    bp = idx.forest.breakpoints.reshape(24, 129)
+    fused = detree.build_forest(proj, 8, 3, Nr=128, leaf_size=32,
+                                breakpoints=bp)
+    for name in ("point_ids", "proj_sorted", "codes_sorted", "valid",
+                 "leaf_lo", "leaf_hi", "leaf_valid", "breakpoints"):
+        got, want = getattr(idx.forest, name), getattr(fused, name)
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_pdet_on_one_card_bit_identical_to_fused(cuda, S):
+    """S shards on one card answer as the fused engine on the same index,
+    bit for bit, and launch range_rerank once per shard per round."""
+    import repro_torch.api as api
+    from repro_torch.core.distributed import PDETIndex
+    from repro_torch.launch.mesh import mesh_from_placement
+    rng = np.random.default_rng(12)
+    data = rng.standard_normal((4000, 32)).astype(np.float32)   # 125 leaves
+    det = api.build(data, torch.Generator().manual_seed(0),
+                    api.IndexSpec(K=8, L=3, leaf_size=32), device=cuda)
+    placement = api.PlacementSpec(mesh_shape=(S,))
+    pdet = PDETIndex.from_detlsh(det, placement, mesh=mesh_from_placement(
+        placement, devices=[cuda] * S))
+    q = torch.tensor(data[:20] + 0.05 * rng.standard_normal((20, 32)),
+                     dtype=torch.float32, device=cuda)
+    for r_min in (None, 0.3):
+        want = det.search(q, api.SearchRequest(k=10, r_min=r_min,
+                                               engine="fused"))
+        before = rr.range_rerank.launches
+        got = pdet.search(q, api.SearchRequest(k=10, r_min=r_min))
+        assert got.stats.engine == "pdet"
+        assert rr.range_rerank.launches - before == S * int(
+            got.stats.psum_rounds)
+        for name in ("ids", "dists"):
+            assert torch.equal(getattr(got, name), getattr(want, name))
+        for name in ("rounds", "n_candidates", "final_r"):
+            assert torch.equal(getattr(got.stats, name),
+                               getattr(want.stats, name))
+
+
+def test_pdet_across_cards_bit_identical_to_fused(cuda):
+    """On a machine with several cards the default mesh puts one shard on
+    each: queries, projections and per-shard tables cross devices, and the
+    answers still equal the fused engine's bit for bit; a snapshot loads
+    back onto the same cards."""
+    import tempfile
+    import repro_torch.api as api
+    S = min(4, torch.cuda.device_count())
+    if S < 2:
+        pytest.skip("needs two or more CUDA devices")
+    rng = np.random.default_rng(13)
+    data = rng.standard_normal((4000, 32)).astype(np.float32)   # 125 leaves
+    spec = api.IndexSpec(K=8, L=3, leaf_size=32,
+                         placement=api.PlacementSpec(mesh_shape=(S,)))
+    pdet = api.build(data, torch.Generator().manual_seed(0), spec)
+    det = api.build(data, torch.Generator().manual_seed(0),
+                    api.IndexSpec(K=8, L=3, leaf_size=32), device=cuda)
+    assert [sh.device for sh in pdet.layout.shards] == [
+        torch.device("cuda", i) for i in range(S)]
+    assert all(sh.points.device == sh.device for sh in pdet.layout.shards)
+    q = data[:20] + 0.05 * rng.standard_normal((20, 32)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        pdet.save(tmp + "/pdet")
+        loaded = api.load(tmp + "/pdet")
+    assert loaded.n_shards == S
+    for r_min in (None, 0.3):
+        want = det.search(q, api.SearchRequest(k=10, r_min=r_min,
+                                               engine="fused"))
+        for index in (pdet, loaded):
+            before = rr.range_rerank.launches
+            got = index.search(q, api.SearchRequest(k=10, r_min=r_min))
+            assert rr.range_rerank.launches - before == S * int(
+                got.stats.psum_rounds)
+            assert got.ids.device == torch.device("cuda", 0)
+            for name in ("ids", "dists"):
+                assert torch.equal(getattr(got, name), getattr(want, name))
+            for name in ("rounds", "n_candidates", "final_r"):
+                assert torch.equal(getattr(got.stats, name),
+                                   getattr(want.stats, name))

@@ -171,3 +171,72 @@ def test_kernel_build_dir_needs_a_source_checkout(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", installed)
     with pytest.raises(RuntimeError, match="source checkout"):
         _build.library_path("encode_pack")
+
+
+# ---------------------------------------------------------------------------
+# (c) lsh_project and encode_bins: the build's projection and encode
+# ---------------------------------------------------------------------------
+
+def _bf16_pair(rng, shape, dtype):
+    """The same values for both packages: a jnp array of ``dtype`` and the
+    torch tensor holding exactly its values (bf16 -> bf16, exact)."""
+    j = jnp.asarray(rng.standard_normal(shape).astype(np.float32)).astype(
+        dtype)
+    t = torch.tensor(np.asarray(j.astype(jnp.float32)))
+    return j, (t.to(torch.bfloat16) if dtype == jnp.bfloat16 else t)
+
+
+# Tolerance, as tests/test_kernels.py states it for the reference's own
+# kernel: the port sums over d in index order, XLA in another order.
+@pytest.mark.parametrize("n,d,m", [(256, 128, 128), (300, 100, 64),
+                                   (512, 960, 64), (1, 17, 3)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_lsh_project_plain_matches_reference(n, d, m, dtype):
+    rng = np.random.default_rng(n + d)
+    xj, xt = _bf16_pair(rng, (n, d), dtype)
+    aj, at = _bf16_pair(rng, (d, m), dtype)
+    want = np.asarray(jops.lsh_project(xj, aj, interpret=True))
+    got = tops.lsh_project(xt, at)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, m)
+    tol = 2e-2 if dtype == jnp.bfloat16 else 1e-5
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.parametrize("n,D,Nr", [(512, 64, 256), (700, 16, 64),
+                                    (64, 4, 16), (1024, 128, 256)])
+def test_encode_bins_plain_matches_reference(n, D, Nr):
+    rng = np.random.default_rng(n + D)
+    coords = (rng.standard_normal((n, D)) * 3.0).astype(np.float32)
+    bp = np.sort((rng.standard_normal((D, Nr + 1)) * 3.0).astype(np.float32),
+                 axis=1, kind="stable")
+    want = np.asarray(jops.encode_bins(jnp.asarray(coords), jnp.asarray(bp),
+                                       interpret=True))
+    got = tops.encode_bins(torch.tensor(coords), torch.tensor(bp))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_project_and_encode_take_the_four_impl_names():
+    """hashing.project and encoding.encode accept every impl name; on CPU
+    tensors each runs plain code and no kernel launch is counted."""
+    from repro_torch.core import encoding, hashing
+    from repro_torch.kernels import encode_bins as ebk
+    from repro_torch.kernels import lsh_project as lpk
+    rng = np.random.default_rng(21)
+    x = torch.tensor(rng.standard_normal((300, 24)), dtype=torch.float32)
+    a = torch.tensor(rng.standard_normal((24, 12)), dtype=torch.float32)
+    before = (lpk.lsh_project.launches, ebk.encode_bins.launches)
+    in_order = tref.project(x, a)
+    projs = {impl: hashing.project(x, a, impl=impl)
+             for impl in ("auto", "xla", "pallas", "pallas_interpret")}
+    for impl in ("pallas", "pallas_interpret"):
+        assert torch.equal(projs[impl], in_order), impl
+    for impl in ("auto", "xla"):                  # torch.matmul's own order
+        torch.testing.assert_close(projs[impl], in_order, rtol=1e-5,
+                                   atol=1e-5)
+    bp = encoding.full_sort(in_order, 32)
+    codes = {impl: encoding.encode(in_order, bp, impl=impl)
+             for impl in ("auto", "xla", "pallas", "pallas_interpret")}
+    for impl, c in codes.items():
+        assert c.dtype == torch.int32 and torch.equal(c, codes["auto"]), impl
+    assert (lpk.lsh_project.launches, ebk.encode_bins.launches) == before

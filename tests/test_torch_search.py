@@ -27,6 +27,7 @@ import repro.api as japi  # noqa: E402
 import repro_torch.api as tapi  # noqa: E402
 from repro.api import registry as jreg  # noqa: E402
 from repro_torch.core import DETLSH  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from tests.conftest import make_clustered, make_queries_near  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -196,12 +197,24 @@ def test_vmap_engine_raises_until_ported(request_kw):
 
 
 def test_unported_kernels_refused_at_build(tmp_path):
+    """project_impl in the pallas names builds through lsh_project (its
+    plain version on the CPU): the forest holds the d-order projection of
+    the data rows.  A reference snapshot with such a spec loads too."""
     data, q = _dataset(seed=12, n=256, nq=2)
-    for spec in (tapi.IndexSpec(K=4, L=2, project_impl="pallas"),
-                 tapi.IndexSpec(K=4, L=2, project_impl="pallas_interpret")):
-        with pytest.raises(NotImplementedError, match="lsh_project"):
-            tapi.build(data, None, spec, device="cpu")
-    # A snapshot with such a spec still loads: nothing is projected at load.
+    x = torch.tensor(data)
+    base = tapi.build(data, None, tapi.IndexSpec(K=4, L=2), device="cpu")
+    for impl in ("pallas", "pallas_interpret"):
+        idx = tapi.build(data, None, tapi.IndexSpec(K=4, L=2,
+                                                    project_impl=impl),
+                         device="cpu")
+        assert torch.equal(idx.A, base.A)
+        f = idx.forest
+        rows = torch.clamp(f.point_ids.to(torch.int64), 0, 255)
+        proj = tref.project(x, idx.A).reshape(256, 2, 4)
+        want = proj[rows, torch.arange(2)[:, None]] * f.valid[..., None]
+        assert torch.equal(f.proj_sorted, want), impl
+        assert idx.search(q, tapi.SearchRequest(k=3)).ids.shape == (2, 3)
+    # A snapshot with such a spec loads: nothing is projected at load.
     jspec = japi.IndexSpec(K=4, L=2, project_impl="pallas")
     japi.build(jnp.asarray(data), jax.random.key(0), jspec).save(
         str(tmp_path / "snap"))
@@ -212,16 +225,24 @@ def test_unported_kernels_refused_at_build(tmp_path):
 
 
 def test_reference_builder_with_pallas_encode_refused():
+    """The reference builder with encode_impl in the pallas names encodes
+    through encode_bins (its plain version on the CPU) and builds the fused
+    builder's forest bit for bit, dtypes included."""
     data, _ = _dataset(seed=13, n=256, nq=1)
+    base = tapi.build(data, None, tapi.IndexSpec(K=4, L=2), device="cpu")
     for impl in ("pallas", "pallas_interpret"):
         spec = tapi.IndexSpec(K=4, L=2, build_impl="reference",
                               encode_impl=impl)
-        with pytest.raises(NotImplementedError, match="encode_bins"):
-            tapi.build(data, None, spec, device="cpu")
+        ref_built = tapi.build(data, None, spec, device="cpu")
+        assert {"encode", "trees"} <= set(ref_built.build_seconds)
+        for name in ("point_ids", "proj_sorted", "codes_sorted", "valid",
+                     "leaf_lo", "leaf_hi", "leaf_valid", "breakpoints"):
+            got = getattr(ref_built.forest, name)
+            want = getattr(base.forest, name)
+            assert got.dtype == want.dtype and torch.equal(got, want), name
     # The fused builder runs the ported encode_pack for every impl name:
     # the kernel ('auto'/'pallas') or its plain version ('xla'/
     # 'pallas_interpret'), which are the same function on the CPU.
-    base = tapi.build(data, None, tapi.IndexSpec(K=4, L=2), device="cpu")
     for impl in ("pallas", "pallas_interpret", "xla"):
         other = tapi.build(data, None, tapi.IndexSpec(K=4, L=2,
                                                       encode_impl=impl),
@@ -247,18 +268,26 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_kinds_raise(tmp_path):
-    """The sharded PDET index is not ported: a placement raises at build
-    and a pdet snapshot at load.  The streaming kind is ported: it builds,
-    and the reference's streaming snapshot loads."""
-    data, _ = _dataset(seed=7, n=256, nq=1)
-    with pytest.raises(NotImplementedError):
-        tapi.build(data, None, tapi.IndexSpec(
-            placement=tapi.PlacementSpec(mesh_shape=(2,))), device="cpu")
+    """Every kind is ported now: a placed spec builds the sharded PDET
+    index (on the CPU, any shard count), the reference's pdet snapshot
+    loads as one, and the streaming kind builds and loads with the
+    reference's digest."""
+    from repro_torch.core.distributed import PDETIndex
+    data, q = _dataset(seed=7, n=256, nq=2)
+    placed = tapi.build(data, None, tapi.IndexSpec(
+        K=4, L=2, placement=tapi.PlacementSpec(mesh_shape=(2,))),
+        device="cpu")
+    assert isinstance(placed, PDETIndex) and placed.n_shards == 2
+    assert placed.search(q, tapi.SearchRequest(k=3)).stats.engine == "pdet"
     pdet = japi.build(jnp.asarray(data), jax.random.key(0), japi.IndexSpec(
         K=4, L=2, placement=japi.PlacementSpec(mesh_shape=(1,))))
     pdet.save(str(tmp_path / "pdet"))
-    with pytest.raises(NotImplementedError, match="pdet"):
-        tapi.load(tmp_path / "pdet", device="cpu")
+    loaded = tapi.load(tmp_path / "pdet", device="cpu")
+    assert isinstance(loaded, PDETIndex) and loaded.n_shards == 1
+    want = pdet.search(jnp.asarray(q), japi.SearchRequest(k=3))
+    got = loaded.search(q, tapi.SearchRequest(k=3))
+    assert got.stats.engine == want.stats.engine == "pdet"
+    _assert_same_answers(want, got, data)
     built = tapi.build(data, None, tapi.IndexSpec(kind="streaming", K=4, L=2,
                                                   delta_capacity=64),
                        device="cpu")

@@ -554,7 +554,22 @@ def test_streaming_entry_points_follow_the_device_rule(tmp_path,
         StreamingDETLSH.build(data)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tapi.load(tmp_path / "snap")
+    # project_impl in the pallas names builds now: the base build, and a
+    # seal on the reference-builder path, project through lsh_project (its
+    # plain version on the CPU, the d-order sum).
+    from repro_torch.kernels import ref
+    rows = make_clustered(rng, 40, D)
     for impl in ("pallas", "pallas_interpret"):
-        with pytest.raises(NotImplementedError, match="lsh_project"):
-            tapi.build(data, None, _spec(tapi, project_impl=impl),
-                       device="cpu")
+        built = tapi.build(data, None, _spec(tapi, project_impl=impl,
+                                             build_impl="reference"),
+                           device="cpu")
+        assert torch.equal(built.A, idx.A)
+        seg = build_segment(rows, np.arange(40), built.A, built.params,
+                            built.bp_all, Nr=32, leaf_size=16, seg_id=1,
+                            project_impl=impl, build_impl="reference")
+        f = seg.forest
+        want = ref.project(torch.tensor(rows), built.A).reshape(40, 4, 4)
+        got = torch.empty_like(want)
+        for l in range(4):
+            got[f.point_ids[l, :40].to(torch.int64), l] = f.proj_sorted[l, :40]
+        assert torch.equal(got, want), impl
