@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check its kernels.
 
-    python3 chip_smoke.py            # n = 1,000,000 SIFT-shaped vectors
+    python3 chip_smoke.py            # n = 1,000,000 SIFT-shaped vectors,
+                                     # then decode at Qwen3-1.7B's widths
 
 Phases, each printed as one line; any failure exits non-zero:
 
@@ -95,13 +96,41 @@ Phases, each printed as one line; any failure exits non-zero:
              max) of fused and of pdet at S = 1 and 4; save at S = 4 ->
              load(device='cuda') (back as S = 1 on one card) -> the same
              answers, and again resharded onto 4 shards of the card.
+  flash_attention  the kernel against its plain version (blockwise online
+             softmax) at Qwen3-1.7B's prefill widths (b = 1, h = 16,
+             sq = sk = 32,768, dh = 128, causal; prefill_32k's batch 32
+             cut to 1) in f32 and bf16, and at tests/test_kernels.py's
+             sweep (sk = 260 ragged, dh = 32, 64, 128; causal and not):
+             within 2e-3 (f32) and 5e-2 (bf16); CUDA-event times of the
+             kernel, its plain version and scaled_dot_product_attention
+             (a yardstick the port never calls) at the prefill widths.
+  decode_path  LSH decode over one attention layer's KV cache at
+             Qwen3-1.7B's widths (16 query heads, 8 kv heads, dh = 128;
+             decode_32k's S = 32,768 at batch 4 instead of 128, f32
+             caches, keys N(0,1) * 0.3 and values N(0,1) from a numpy seed
+             as benchmarks/decode_throughput.py makes them):
+             KVCacheIndex.prefill of the first S - 256 positions on cuda
+             (encode_pack once a head), then 256 LSHDecoder steps
+             (window 64, sinks 4, refresh every 12; KVSpec() defaults, so
+             two seals at delta_capacity 128), each beside a dense decode
+             step through the flash_attention kernel; range_rerank_heads
+             must launch once a retrieval round for all 32 heads.  Then:
+             range_rerank_heads against its plain version at the
+             estimated radius and head by head bit-identical to the
+             single-forest kernel; a retrieval at r_min = 1e6 in one round
+             whose forest tier is the exact top-64 lane by lane (ties
+             counted); planted-position recall over 8 trials; sparse
+             attention over every position equal to dense attention within
+             1e-4; 1,000 deleted positions absent from the next retrieval;
+             save raising as in the reference.  Step, retrieval, seal and
+             dense-step times, cosine to dense attention.
 
 Then one JSON line per the kernel table (time, plain time, launches on the
 path that runs the kernel, least possible time from bytes and operations,
 and a PyTorch call's time where one computes the same function), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 67 TFLOP/s fp32
-on the CUDA cores.
+on the CUDA cores, 989 TFLOP/s bf16 on the tensor cores.
 """
 
 from __future__ import annotations
@@ -121,6 +150,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12          # dense tensor-core rate
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1006,14 +1036,17 @@ def pdet_path(torch, data, queries) -> dict:
 def _kernel_wrappers() -> dict:
     """Every kernel wrapper by name; each carries its ``launches`` count."""
     from repro_torch.kernels import build_fused, encode_bins, l2_rerank
-    from repro_torch.kernels import leaf_bounds, lsh_project, range_rerank
+    from repro_torch.kernels import flash_attention, leaf_bounds, lsh_project
+    from repro_torch.kernels import range_rerank
     return {"encode_pack": build_fused.encode_pack,
             "project_encode_pack": build_fused.project_encode_pack,
             "range_rerank": range_rerank.range_rerank,
+            "range_rerank_heads": range_rerank.range_rerank_heads,
             "leaf_bounds": leaf_bounds.leaf_bounds,
             "l2_rerank": l2_rerank.l2_rerank,
             "lsh_project": lsh_project.lsh_project,
-            "encode_bins": encode_bins.encode_bins}
+            "encode_bins": encode_bins.encode_bins,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def _stream_counts() -> dict:
@@ -1234,8 +1267,9 @@ def streaming_path(torch, n: int) -> dict:
         require(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
                 f"save -> load -> search ({name}) is not bit-identical")
     del loaded
-    launches = {k: v for k, v in _stream_counts().items()
-                if k not in ("lsh_project", "encode_bins")}  # build-only
+    launches = {k: v for k, v in _stream_counts().items()   # this path's
+                if k not in ("lsh_project", "encode_bins",
+                             "range_rerank_heads", "flash_attention")}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the streaming path never launched: {launches}")
     require(launches["project_encode_pack"] == n_seals,
@@ -1259,6 +1293,454 @@ def streaming_path(torch, n: int) -> dict:
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     line("streaming_path", **out)
     return out
+
+
+# Qwen3-1.7B's attention widths (src/repro/configs/qwen3_1_7b.py).
+QWEN3_HEADS, QWEN3_KV_HEADS, QWEN3_DH = 16, 8, 128
+
+
+def check_flash_attention(torch, b: int, h: int, sq: int, sk: int, dh: int,
+                          causal: bool, dtype, *, timed: bool) -> dict:
+    """The kernel against its plain version (blockwise online softmax) at
+    one shape, within ref.flash_attention_tolerance: both accumulate in
+    f32 and round once, so f32 allows 1e-5 + 1e-5 * |plain| (summation
+    order) and bf16 one unit in the last place, 2^-7 * |plain|, plus 1e-3
+    of the head's rms; the looser tolerances of tests/test_kernels.py (f32
+    2e-3, bf16 5e-2) follow from it.  ``worst_ratio`` is the largest
+    error over its bound.  Timed: CUDA-event
+    ms of both and of scaled_dot_product_attention (flash or
+    memory-efficient backend) on the same inputs, a yardstick the port
+    never calls."""
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator("cuda").manual_seed(sq + sk + dh)
+    q = (torch.randn((b, h, sq, dh), generator=gen, device="cuda")
+         * 0.5).to(dtype)
+    k = (torch.randn((b, h, sk, dh), generator=gen, device="cuda")
+         * 0.5).to(dtype)
+    v = torch.randn((b, h, sk, dh), generator=gen, device="cuda").to(dtype)
+    before = fak.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal).float()
+    require(fak.flash_attention.launches == before + 1,
+            "ops.flash_attention did not launch the kernel")
+    want = ref.flash_attention(q, k, v, causal=causal)
+    allowed = ref.flash_attention_tolerance(want)
+    want = want.float()
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    err = (got - want).abs()
+    worst = float((err / allowed).max())
+    tag = (f"flash_attention b={b} h={h} sq={sq} sk={sk} dh={dh} "
+           f"causal={causal} {str(dtype).split('.')[-1]}")
+    require(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    require(worst <= 1.0, f"{tag}: outside tolerance (max err "
+            f"{float(err.max())}, {worst} times its bound)")
+    flops = 4 * b * h * sq * sk * dh / (2 if causal else 1)
+    nbytes = q.element_size() * (2 * b * h * sq * dh + 2 * b * h * sk * dh)
+    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(b=b, h=h, sq=sq, sk=sk, dh=dh, causal=causal,
+               dtype=str(dtype).split(".")[-1], max_abs_err=float(err.max()),
+               worst_ratio=worst, out_rms=float(want.square().mean().sqrt()),
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=flops, bytes=nbytes)
+    del got, want, err, allowed
+    if timed:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        out["ms"] = time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=causal), warmup=1, reps=5)
+        out["plain_ms"] = time_ms(torch, lambda: ref.flash_attention(
+            q, k, v, causal=causal), warmup=1, reps=3)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            out["library_ms"] = time_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), warmup=1, reps=5)
+    line("flash_attention", **out)
+    return out
+
+
+def flash_phase(torch) -> list:
+    """Qwen3-1.7B's prefill widths (prefill_32k's batch 32 cut to 1) in f32
+    and bf16, timed, then tests/test_kernels.py's sweep with its ragged
+    sk = 260."""
+    cases = [check_flash_attention(torch, 1, QWEN3_HEADS, 32768, 32768,
+                                   QWEN3_DH, True, dt, timed=True)
+             for dt in (torch.float32, torch.bfloat16)]
+    for b, h, sq, sk, dh in ((1, 2, 128, 128, 64), (2, 1, 100, 260, 32),
+                             (1, 1, 128, 384, 128)):
+        for causal in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                cases.append(check_flash_attention(
+                    torch, b, h, sq, sk, dh, causal, dt, timed=False))
+    return cases
+
+
+def dense_decode(torch, q, k_cache, v_cache, length: int):
+    """Exact decode attention through the flash_attention kernel: q
+    (b, 1, h, dh) against cache positions 0..length-1, kv head kv repeated
+    for its g query heads kv*g .. kv*g+g-1."""
+    from repro_torch.kernels import ops
+    b, _, h, dh = q.shape
+    g = h // k_cache.shape[2]
+
+    def heads(c):
+        return c[:, :length].permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+
+    out = ops.flash_attention(q.permute(0, 2, 1, 3), heads(k_cache),
+                              heads(v_cache), causal=False)
+    return out.permute(0, 2, 1, 3).reshape(b, 1, h, dh)
+
+
+def _cosine(a, b) -> float:
+    a = a.reshape(-1, a.shape[-1]).double()
+    b = b.reshape(-1, b.shape[-1]).double()
+    return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)
+                                     + 1e-30)).mean())
+
+
+def check_range_rerank_heads(torch, index, q) -> dict:
+    """The heads kernel at the decode forest's shapes and the first round's
+    radius (eps * the estimated r_min) against its plain version (identical
+    +inf mask, finite entries within range_rerank's tolerance), and every
+    head bit-identical to a single-forest launch on that head's arrays."""
+    from repro_torch.kernels import range_rerank as rrk
+    from repro_torch.kernels import ref
+    f, H, L, n = index.forest, index.H, index.spec.L, index.n_sealed
+    g = q.shape[2] // index.hk
+    inp = index.round_inputs(q)
+    q_aug, q_proj = inp.q_aug, inp.q_proj
+    K = q_proj.shape[-1]
+    r_min = index._estimate_r_min(q_aug)
+    r_eff = torch.full((H, L, g), index.params.epsilon * r_min,
+                       device="cuda")
+    args = (q_aug, q_proj, r_eff, f.leaf_lo, f.leaf_hi, f.leaf_valid,
+            f.breakpoints, f.points_sorted, f.valid, inp.live_sorted)
+    ls = index.spec.leaf_size
+    got = rrk.range_rerank_heads(*args, leaf_size=ls)
+    want = ref.range_rerank_heads(*args, leaf_size=ls)
+    torch.cuda.synchronize()
+    require(torch.equal(torch.isinf(got), torch.isinf(want)),
+            "range_rerank_heads: +inf masks differ from the plain version")
+    fin = torch.isfinite(want)
+    max_sq = float((f.points_sorted ** 2).sum(-1).max())
+    err = (got[fin] - want[fin]).abs()
+    require(bool((err <= 1e-4 * want[fin].abs() + 1e-4 * max_sq).all()),
+            f"range_rerank_heads: finite entries outside tolerance (max err "
+            f"{float(err.max())})")
+    for h in range(H):
+        single = rrk.range_rerank(*(a[h] for a in args), leaf_size=ls)
+        require(torch.equal(got[h], single),
+                f"range_rerank_heads: head {h} differs from a single-forest "
+                f"launch")
+    lb = torch.stack([ref.forest_leaf_lb(q_proj[h], f.leaf_lo[h],
+                                         f.leaf_hi[h], f.leaf_valid[h],
+                                         f.breakpoints[h])
+                      for h in range(H)])                   # (H, L, g, nl)
+    admit = (lb <= r_eff[..., None]) & f.leaf_valid[:, :, None, :]
+    pairs = int(admit.sum())
+    leaves_read = int(admit.any(dim=2).sum())
+    nl = f.leaf_lo.shape[2]
+    d, E = q_aug.shape[-1], f.breakpoints.shape[-1]
+    npts = nl * ls
+    nbytes = H * (4 * g * d + 4 * L * g * K + 4 * L * g + 2 * 4 * L * nl * K
+                  + L * nl + 4 * L * K * E + 2 * L * npts + 4 * L * g * npts
+                  ) + 4 * leaves_read * ls * d
+    flops = 6 * H * L * g * nl * K + 2 * d * ls * pairs
+    bms, by = bound_ms(nbytes, flops)
+    out = dict(H=H, L=L, g=g, n=n, d=d, r_min=r_min, mask_identical=True,
+               heads_bit_identical=True, max_abs_err=float(err.max()),
+               finite=int(fin.sum()), admitted_pairs=pairs,
+               leaves_read=leaves_read, bound_ms=bms, bound_by=by,
+               bytes=nbytes, flops=flops)
+    del got, want, fin, err
+    out["ms"] = time_ms(torch, lambda: rrk.range_rerank_heads(
+        *args, leaf_size=ls))
+    out["plain_ms"] = time_ms(torch, lambda: ref.range_rerank_heads(
+        *args, leaf_size=ls), warmup=1, reps=3)
+    line("range_rerank_heads", **out)
+    return out
+
+
+def decode_breakdown(torch, index, q, k_cache, v_cache, length: int,
+                     window: int, sinks: int) -> None:
+    """CUDA-event ms of the parts of a decode step at the index's final
+    state: a whole retrieval (host syncs included), its pieces (the round
+    inputs: query transform, projection, live mask in sorted order, fold
+    index; one range_rerank_heads round, the fold through inv_perm, the
+    T1/T2 update, the final top-k), and the sparse attention
+    over the retrieved table."""
+    from repro_torch.core import query
+    from repro_torch.decode import sparse_decode_attention
+    from repro_torch.decode.kv_index import _RoundParams
+    from repro_torch.kernels import ops
+    f, H, n = index.forest, index.H, index.n_sealed
+    g = q.shape[2] // index.hk
+    inp = index.round_inputs(q)
+    r = torch.full((H * g,), index._estimate_r_min(inp.q_aug), device="cuda")
+    r_eff = (index.params.epsilon * r).reshape(H, g)
+
+    def rerank():
+        return ops.range_rerank_heads(
+            inp.q_aug, inp.q_proj, r_eff, f.leaf_lo, f.leaf_hi, f.leaf_valid,
+            f.breakpoints, f.points_sorted, f.valid, inp.live_sorted,
+            leaf_size=index.spec.leaf_size)
+
+    fold = inp.fold
+    dmat = rerank()
+    by_id = torch.gather(dmat, 3, fold).amin(dim=1).reshape(H * g, n)
+    best = torch.full((H * g, n), float("inf"), device="cuda")
+    done = torch.zeros((H * g,), dtype=torch.bool, device="cuda")
+    rounds = torch.zeros((H * g,), dtype=torch.int32, device="cuda")
+    thresh = torch.tensor(index.params.beta * n + index.spec.m_top,
+                          device="cuda")
+    positions = index.retrieve(q).ids.reshape(index.b, index.hk, g, -1)
+    steps = {
+        "retrieve": lambda: index.retrieve(q),
+        "round_inputs": lambda: index.round_inputs(q),
+        "range_rerank_heads": rerank,
+        "fold_inv_perm": lambda: torch.gather(dmat, 3, fold).amin(dim=1),
+        "round_update": lambda: query.fused_round_update(
+            best, by_id, r, done, rounds, 0,
+            params=_RoundParams(c=index.params.c), k=index.spec.m_top,
+            thresh=thresh),
+        "topk": lambda: query.fused_topk(by_id, index.spec.m_top, n),
+        "sparse_attention": lambda: sparse_decode_attention(
+            q, k_cache, v_cache, positions, length, window=window,
+            sinks=sinks),
+    }
+    line("decode_breakdown", **{name: time_ms(torch, fn, warmup=1, reps=5)
+                                for name, fn in steps.items()})
+
+
+def _planted_query(torch, k_cache, pos: int, g: int, scale: float):
+    """Decode queries aligned with the key at ``pos`` in every kv head."""
+    b, _, hk, dh = k_cache.shape
+    return (k_cache[:, pos][:, :, None, :].expand(b, hk, g, dh)
+            .reshape(b, 1, hk * g, dh) * scale).contiguous()
+
+
+def decode_path(torch, *, b: int = 4, S: int = 32768, steps: int = 256
+                ) -> dict:
+    """LSH decode over one attention layer's KV cache at Qwen3-1.7B's
+    widths (decode_32k's batch 128 cut to b), through KVCacheIndex.prefill
+    and LSHDecoder.step, beside a dense decode step through the
+    flash_attention kernel."""
+    from repro_torch.decode import (KVCacheIndex, KVSpec, LSHDecoder,
+                                    sparse_decode_attention)
+    from repro_torch.kernels import ops
+    hk, dh = QWEN3_KV_HEADS, QWEN3_DH
+    g = QWEN3_HEADS // hk
+    window, sinks, refresh = 64, 4, 12        # benchmarks/decode_throughput.py
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    k_cache = torch.tensor((rng.standard_normal((b, S, hk, dh)) * 0.3)
+                           .astype(np.float32), device="cuda")
+    v_cache = torch.tensor(rng.standard_normal((b, S, hk, dh))
+                           .astype(np.float32), device="cuda")
+    data_s = time.perf_counter() - t0
+    prefill = S - steps
+    spec = KVSpec()
+    targets = rng.integers(0, prefill, steps // refresh + 1)
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = KVCacheIndex.prefill(k_cache[:, :prefill],
+                                 torch.Generator().manual_seed(0), spec,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = _stream_counts()
+    require(prefill_launches["encode_pack"] == index.H,
+            f"prefill launched encode_pack {prefill_launches['encode_pack']} "
+            f"times for {index.H} heads")
+    retrievals, seal_ms, tables = [], [], []
+    retrieve, seal = index.retrieve, index._seal
+
+    def timed_retrieve(q, r_min=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = retrieve(q, r_min)
+        rounds = int(res.rounds.max())           # the loop's round count
+        retrievals.append(((time.perf_counter() - t) * 1e3, rounds))
+        tables.append(res.ids)                   # read after the run
+        return res
+
+    def timed_seal():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seal()
+        torch.cuda.synchronize()
+        seal_ms.append((time.perf_counter() - t) * 1e3)
+
+    index.retrieve, index._seal = timed_retrieve, timed_seal
+    dec = LSHDecoder(index, window=window, sinks=sinks,
+                     refresh_every=refresh)
+    step_ms, dense_ms, cos = [], [], []
+    for t in range(steps):
+        length = prefill + t + 1
+        q = _planted_query(torch, k_cache, int(targets[t // refresh]), g,
+                           16.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = dec.step(q, k_cache, v_cache, k_cache[:, length - 1], length)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dense = dense_decode(torch, q, k_cache, v_cache, length)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        step_ms.append((t2 - t1) * 1e3)
+        dense_ms.append((t3 - t2) * 1e3)
+        cos.append(_cosine(out, dense))
+    launches = _stream_counts()
+    index.retrieve, index._seal = retrieve, seal
+    rounds_total = sum(r for _, r in retrievals)
+    require(launches["range_rerank_heads"] == rounds_total > 0,
+            f"range_rerank_heads launched {launches['range_rerank_heads']} "
+            f"times for {rounds_total} retrieval rounds")
+    require(launches["range_rerank"] == 0,
+            "the decode path launched the single-forest range_rerank")
+    require(launches["flash_attention"] == steps,
+            "the dense decode steps did not all launch flash_attention")
+    require(index.seals == steps // spec.delta_capacity == len(seal_ms),
+            f"{index.seals} seals in {steps} steps")
+    require(launches["encode_pack"] == index.H * (1 + index.seals),
+            "encode_pack did not launch once a head at prefill and seals")
+    require(dec.n_refreshes == len(retrievals) == -(-steps // refresh),
+            "retrievals differ from the refresh schedule")
+    require(all(math.isfinite(c) for c in cos), "a non-finite decode output")
+    minus1 = _minus1_lanes(torch, tables, spec.m_top)
+
+    # Checks after the run (launches here are not the path's).
+    length = prefill + steps
+    q = _planted_query(torch, k_cache, int(targets[-1]), g, 16.0)
+    heads = check_range_rerank_heads(torch, index, q)
+    decode_breakdown(torch, index, q, k_cache, v_cache, length, window,
+                     sinks)
+    wide = _wide_radius_check(torch, index, q)
+    hits = []
+    for _ in range(8):
+        pos = int(rng.integers(0, index.n_sealed))
+        res = index.retrieve(_planted_query(torch, k_cache, pos, g, 4.0))
+        hits.append(float((res.ids == pos).any(-1).float().mean()))
+    positions = torch.arange(length, dtype=torch.int32, device="cuda")
+    all_pos = sparse_decode_attention(
+        q, k_cache, v_cache,
+        positions.expand(b, hk, g, length), length, window=window,
+        sinks=sinks)
+    dense = dense_decode(torch, q, k_cache, v_cache, length)
+    all_err = float((all_pos - dense).abs().max())
+    require(all_err <= 1e-4, f"sparse attention over every position differs "
+            f"from dense attention by {all_err}")
+    del all_pos, dense
+    res = index.retrieve(q)
+    ids = res.ids[res.ids >= 0].unique()
+    extra = torch.tensor(rng.choice(length, 1000, replace=False),
+                         device="cuda")
+    dead = torch.cat([ids, extra[~torch.isin(extra, ids)]])[:1000]
+    before = index.n_points
+    require(index.delete(dead.cpu().numpy()) == 1000,
+            "delete did not remove 1,000 live positions")
+    require(index.n_points == before - 1000, "n_points after delete")
+    res = index.retrieve(q)
+    require(not bool(torch.isin(res.ids, dead).any()),
+            "a deleted position came back from retrieval")
+    try:
+        index.save(os.path.join(tempfile.gettempdir(), "kv-unused"))
+        saved = True
+    except NotImplementedError:
+        saved = False
+    require(not saved, "KVCacheIndex.save must raise NotImplementedError")
+    dense_step_ms = time_ms(
+        torch, lambda: dense_decode(torch, q, k_cache, v_cache, length),
+        warmup=1, reps=5)
+    kh, vh = (c.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+              for c in (k_cache, v_cache))
+    dense_kernel_ms = time_ms(torch, lambda: ops.flash_attention(
+        q.permute(0, 2, 1, 3), kh, vh), warmup=1, reps=5)
+    del kh, vh
+
+    def spread(xs):
+        return dict(median=statistics.median(xs), min=min(xs), max=max(xs))
+
+    out = dict(
+        b=b, S=S, hk=hk, g=g, dh=dh, H=index.H, prefill_positions=prefill,
+        steps=steps, spec=dataclasses.asdict(spec), window=window,
+        sinks=sinks, refresh_every=refresh, data_seconds=data_s,
+        prefill_seconds=prefill_s, step_ms=spread(step_ms),
+        dense_step_ms=spread(dense_ms), dense_step_ms_timed=dense_step_ms,
+        dense_kernel_ms=dense_kernel_ms,
+        retrieval_ms=spread([m for m, _ in retrievals]),
+        retrieval_rounds=[r for _, r in retrievals],
+        n_refreshes=dec.n_refreshes, seal_ms=seal_ms, seals=index.seals,
+        clipped_upserts=index.clip_total,
+        cosine_vs_dense=dict(mean=statistics.fmean(cos), min=min(cos)),
+        planted_recall=statistics.fmean(hits), all_positions_max_err=all_err,
+        **minus1,
+        deleted=1000, launches=launches, prefill_launches=prefill_launches,
+        index_gb=index.index_size_bytes() / 1e9,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **wide)
+    line("decode_path", **out)
+    return dict(out, heads=heads)
+
+
+def _minus1_lanes(torch, tables, m_top: int) -> dict:
+    """How often a retrieved table's -1 (no candidate) reaches the sparse
+    attention: clipped to position 0, it comes before the sink 0 in the
+    repeat mask, so sink 0 drops out of a lane whose first -1 precedes its
+    first real 0 (the reference's behaviour, which the port keeps).
+    Counted over the lanes of every refresh of the run; the forest tier
+    is a table's first m_top entries, the delta tier the rest."""
+    ids = torch.stack(tables)                       # (refreshes, H, g, m)
+    m = ids.shape[-1]
+    pos = torch.arange(m, device=ids.device)
+
+    def first(mask):
+        return torch.where(mask, pos, m).amin(dim=-1)
+
+    neg = ids < 0
+    return dict(lanes_retrieved=neg[..., 0].numel(),
+                lanes_holding_minus1=int(neg.any(-1).sum()),
+                lanes_forest_tier_minus1=int(neg[..., :m_top].any(-1).sum()),
+                lanes_sink0_masked=int((first(neg) < first(ids == 0)).sum()))
+
+
+def _wide_radius_check(torch, index, q) -> dict:
+    """r_min = 1e6 admits every leaf in round one, so the forest tier must
+    be the exact top-m_top over augmented distances, lane by lane as sets;
+    a lane may differ only by points tied with the m-th distance (within
+    range_rerank's tolerance), counted."""
+    H, m = index.H, index.spec.m_top
+    g = q.shape[2] // index.hk
+    res = index.retrieve(q, r_min=1e6)
+    require(int(res.rounds.max()) == 1,
+            "the wide-radius retrieval ran more than one round")
+    q_aug = index.round_inputs(q).q_aug
+    live = torch.tensor(index._live[:index.n_sealed], device="cuda")
+    aug = torch.tensor(index._aug, device="cuda")
+    exact = torch.cdist(q_aug.double(), aug.double())          # (H, g, n)
+    exact[:, :, ~live] = float("inf")
+    top = exact.topk(m + 1, dim=-1, largest=False)
+    max_sq = float((aug.double() ** 2).sum(-1).max())
+    got = res.ids[..., :m]
+    excused = 0
+    for h in range(H):
+        for j in range(g):
+            want = set(top.indices[h, j, :m].tolist())
+            have = set(got[h, j].tolist())
+            if want == have:
+                continue
+            mth = float(top.values[h, j, m - 1])
+            for pos in have - want:
+                require(pos >= 0 and abs(float(exact[h, j, pos]) - mth)
+                        <= 1e-4 * max_sq,
+                        f"wide retrieval: head {h} lane {j} holds position "
+                        f"{pos}, not among the exact top-{m}")
+            excused += 1
+    return dict(wide_lanes=H * g, wide_lanes_excused_at_a_tie=excused)
 
 
 def main() -> int:
@@ -1320,6 +1802,9 @@ def main() -> int:
     del index, queries
     torch.cuda.empty_cache()
     stream = streaming_path(torch, n)
+    torch.cuda.empty_cache()
+    flash = flash_phase(torch)
+    decode = decode_path(torch)
 
     print(json.dumps({"kernels": [
         {"name": "encode_pack", "route": "cuda",
@@ -1378,6 +1863,26 @@ def main() -> int:
          "ms": ebins["ms"], "plain_ms": ebins["plain_ms"],
          "bound_ms": ebins["bound_ms"], "bound_by": ebins["bound_by"],
          "library_ms": ebins["library_ms"]},
+        {"name": "range_rerank_heads", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/range_rerank.cu",
+         "replaces": "src/repro/kernels/ops.py:187",
+         "launches": decode["launches"]["range_rerank_heads"],
+         "max_abs_err": decode["heads"]["max_abs_err"],
+         "ms": decode["heads"]["ms"], "plain_ms": decode["heads"]["plain_ms"],
+         "bound_ms": decode["heads"]["bound_ms"],
+         "bound_by": decode["heads"]["bound_by"], "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:66",
+         "launches": decode["launches"]["flash_attention"],
+         "max_abs_err": max(c["max_abs_err"] for c in flash),
+         "max_abs_err_f32": max(c["max_abs_err"] for c in flash
+                                if c["dtype"] == "float32"),
+         "max_abs_err_bf16": max(c["max_abs_err"] for c in flash
+                                 if c["dtype"] == "bfloat16"),
+         "ms": flash[0]["ms"], "plain_ms": flash[0]["plain_ms"],
+         "bound_ms": flash[0]["bound_ms"], "bound_by": flash[0]["bound_by"],
+         "library_ms": flash[0]["library_ms"]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

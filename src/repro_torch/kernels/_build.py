@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("encode_pack", "range_rerank", "leaf_bounds", "l2_rerank",
-           "project_encode_pack", "lsh_project", "encode_bins")
+           "project_encode_pack", "lsh_project", "encode_bins",
+           "flash_attention")
 
 
 def _nvcc() -> str:

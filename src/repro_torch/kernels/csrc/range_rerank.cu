@@ -22,6 +22,16 @@
 // kQ = 32 queries), the query tile fastest in the linear block index so the
 // blocks that share a point tile run together and find it in L2; at B = 100
 // a point tile is read by 4 query tiles.
+//   Head axis (range_rerank_heads_launch; replaces the vmap of the TPU
+//   kernel in src/repro/kernels/ops.py:range_rerank_heads, which lifts H
+//   into the pallas_call grid): H independent forests, each with its own
+//   query batch, in one launch.  The block index decomposes into
+//   (head, tree, point tile, query tile) and every array is offset by the
+//   head's stride; the single-forest entry is the same body without the
+//   head digit, so head h of a heads launch equals a single-forest launch
+//   on head h's arrays bit for bit.  At decode (B = g = 2 query heads a
+//   forest) a query tile is 1/16 full: tiling several heads' lanes
+//   together is later work.
 //   1. LB and admission per (leaf of the tile, query): the leaf's edge
 //      coordinates are gathered directly (on the TPU an edge sweep), and the
 //      K clamped gaps accumulate in the order k = 0..K-1 with
@@ -61,6 +71,10 @@ size_t smem_bytes(int d) {
          static_cast<size_t>(kP + 1) * kQ;
 }
 
+// kHeads: every array has a leading head axis, and the block index a
+// leading head digit.  The single-forest instance compiles without the
+// head digit and the head offsets.
+template <bool kHeads>
 __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
     const float* __restrict__ q,            // (B, d)
     const float* __restrict__ q_proj,       // (L, B, K)
@@ -73,7 +87,7 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
     const uint8_t* __restrict__ point_valid,  // (L, nl*ls)
     const uint8_t* __restrict__ live,       // (L, nl*ls)
     float* __restrict__ out,                // (L, B, nl*ls)
-    int B, int d, int nl, int K, int E, int ls,
+    int L, int B, int d, int nl, int K, int E, int ls,
     int n_qtiles, int64_t n_ptiles) {
   extern __shared__ float smem[];
   const int dp = padded_dim(d);
@@ -85,10 +99,25 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
   const int64_t bid = blockIdx.x;
   const int qt = static_cast<int>(bid % n_qtiles);
   const int64_t pt = (bid / n_qtiles) % n_ptiles;
-  const int l = static_cast<int>(bid / (static_cast<int64_t>(n_qtiles) * n_ptiles));
+  const int64_t tree = bid / (static_cast<int64_t>(n_qtiles) * n_ptiles);
+  const int l = static_cast<int>(kHeads ? tree % L : tree);
   const int q0 = qt * kQ;
   const int nq = min(kQ, B - q0);
   const int64_t npts = static_cast<int64_t>(nl) * ls;
+  if constexpr (kHeads) {             // head h's arrays
+    const int64_t h = tree / L;
+    q += h * B * d;
+    q_proj += h * L * B * K;
+    r_eff += h * L * B;
+    leaf_lo += h * L * nl * K;
+    leaf_hi += h * L * nl * K;
+    leaf_valid += h * L * nl;
+    bp += h * L * K * E;
+    points += h * L * npts * d;
+    point_valid += h * L * npts;
+    live += h * L * npts;
+    out += h * L * B * npts;
+  }
   const int64_t p0 = pt * kP;
   const int t = threadIdx.x;
 
@@ -218,32 +247,57 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
   }
 }
 
+template <bool kHeads>
+int launch(const float* q, const float* q_proj, const float* r_eff,
+           const int32_t* leaf_lo, const int32_t* leaf_hi,
+           const uint8_t* leaf_valid, const float* bp, const float* points,
+           const uint8_t* point_valid, const uint8_t* live, float* out, int H,
+           int L, int B, int d, int nl, int K, int E, int ls, void* stream) {
+  const int64_t npts = static_cast<int64_t>(nl) * ls;
+  if (H == 0 || L == 0 || B == 0 || npts == 0) return 0;
+  const int n_qtiles = (B + kQ - 1) / kQ;
+  const int64_t n_ptiles = (npts + kP - 1) / kP;
+  const int64_t blocks = static_cast<int64_t>(H) * L * n_qtiles * n_ptiles;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = smem_bytes(d);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        range_rerank_kernel<kHeads>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  range_rerank_kernel<kHeads><<<static_cast<unsigned>(blocks), kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, bp, points, point_valid,
+      live, out, L, B, d, nl, K, E, ls, n_qtiles, n_ptiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// One forest: arrays as the kernel's comments give them.
 extern "C" int range_rerank_launch(
     const float* q, const float* q_proj, const float* r_eff,
     const int32_t* leaf_lo, const int32_t* leaf_hi, const uint8_t* leaf_valid,
     const float* bp, const float* points, const uint8_t* point_valid,
     const uint8_t* live, float* out, int L, int B, int d, int nl, int K,
     int E, int ls, void* stream) {
-  const int64_t npts = static_cast<int64_t>(nl) * ls;
-  if (L == 0 || B == 0 || npts == 0) return 0;
-  const int n_qtiles = (B + kQ - 1) / kQ;
-  const int64_t n_ptiles = (npts + kP - 1) / kP;
-  const int64_t blocks = static_cast<int64_t>(L) * n_qtiles * n_ptiles;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        range_rerank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  range_rerank_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, bp, points, point_valid,
-      live, out, B, d, nl, K, E, ls, n_qtiles, n_ptiles);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, bp,
+                       points, point_valid, live, out, 1, L, B, d, nl, K, E,
+                       ls, stream);
+}
+
+// H forests in one launch: every array with a leading head axis H.
+extern "C" int range_rerank_heads_launch(
+    const float* q, const float* q_proj, const float* r_eff,
+    const int32_t* leaf_lo, const int32_t* leaf_hi, const uint8_t* leaf_valid,
+    const float* bp, const float* points, const uint8_t* point_valid,
+    const uint8_t* live, float* out, int H, int L, int B, int d, int nl,
+    int K, int E, int ls, void* stream) {
+  return launch<true>(q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, bp,
+                      points, point_valid, live, out, H, L, B, d, nl, K, E,
+                      ls, stream);
 }
 
 extern "C" const char* range_rerank_error_string(int code) {

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import build_fused as _bf
 from repro_torch.kernels import encode_bins as _enc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import l2_rerank as _l2
 from repro_torch.kernels import leaf_bounds as _lb
 from repro_torch.kernels import lsh_project as _proj
@@ -106,6 +107,36 @@ def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
                             live, leaf_size=leaf_size)
 
 
+def range_rerank_heads(q: torch.Tensor, q_proj: torch.Tensor,
+                       r_eff: torch.Tensor, leaf_lo: torch.Tensor,
+                       leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
+                       breakpoints: torch.Tensor, points: torch.Tensor,
+                       point_valid: torch.Tensor,
+                       live: Optional[torch.Tensor] = None, *,
+                       leaf_size: int, interpret: bool = False
+                       ) -> torch.Tensor:
+    """Batched-forest fused range query + rerank (the KV-decode entry).
+
+    :func:`range_rerank` with a leading head axis H on every array: H
+    independent forests, each answering its own query batch.  q (H, B, d);
+    q_proj (H, L, B, K); r_eff (H, B) shared across trees or (H, L, B);
+    leaf arrays (H, L, nl, ...); points (H, L, nl*leaf_size, d); ``live``
+    None means every point is live.  Returns (H, L, B, nl*leaf_size).  On
+    a CUDA tensor all H forests share one kernel launch."""
+    if live is None:
+        live = point_valid
+    if interpret or not _on_cuda(q):
+        return _ref.range_rerank_heads(q, q_proj, r_eff, leaf_lo, leaf_hi,
+                                       leaf_valid, breakpoints, points,
+                                       point_valid, live,
+                                       leaf_size=leaf_size)
+    H, L, B, _ = q_proj.shape
+    r3 = r_eff[:, None, :] if r_eff.ndim == 2 else r_eff
+    return _rr.range_rerank_heads(q, q_proj, r3.expand(H, L, B), leaf_lo,
+                                  leaf_hi, leaf_valid, breakpoints, points,
+                                  point_valid, live, leaf_size=leaf_size)
+
+
 def leaf_bounds(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
                 leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
                 breakpoints: torch.Tensor, *, interpret: bool = False
@@ -130,3 +161,21 @@ def l2_rerank(q: torch.Tensor, c: torch.Tensor, *,
     if q.ndim == 2:
         return _l2.l2_rerank(q.contiguous()[None], c.contiguous()[None])[0]
     return _l2.l2_rerank(q.contiguous(), c.contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    interpret: bool = False) -> torch.Tensor:
+    """Exact attention by online softmax; see kernels/flash_attention.py.
+    q (b, h, sq, dh), k/v (b, h, sk, dh) -> (b, h, sq, dh) in q's dtype;
+    ``scale`` defaults to 1/sqrt(dh); causal is top-left aligned."""
+    if interpret or not _on_cuda(q):
+        return _ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    out = _fa.flash_attention(q.reshape(b * h, sq, dh).contiguous(),
+                              k.reshape(b * h, sk, dh).contiguous(),
+                              v.reshape(b * h, sk, dh).contiguous(),
+                              causal=causal, scale=scale)
+    return out.reshape(b, h, sq, dh)

@@ -9,6 +9,8 @@ between the two by device and widens probe radii first.
 The kernel masks the ragged edges itself, so no padding is needed: lanes
 past B and leaves past nl do not exist for it, which is what the
 reference's padded lanes (r_eff = -1) and padded leaves (invalid) amount to.
+``range_rerank_heads`` runs the same kernel body over H forests at once (the
+KV-decode retrieval: one forest per (batch, kv-head)).
 """
 
 from __future__ import annotations
@@ -22,9 +24,14 @@ from repro_torch.kernels import _build
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("range_rerank")
-    fn = lib.range_rerank_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.range_rerank_launch.restype = ctypes.c_int
+    lib.range_rerank_launch.argtypes = ([ctypes.c_void_p] * 11
+                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_void_p])
+    lib.range_rerank_heads_launch.restype = ctypes.c_int
+    lib.range_rerank_heads_launch.argtypes = ([ctypes.c_void_p] * 11
+                                              + [ctypes.c_int] * 8
+                                              + [ctypes.c_void_p])
     return lib
 
 
@@ -33,6 +40,56 @@ def _as_bytes(mask: torch.Tensor) -> torch.Tensor:
     if mask.dtype not in (torch.bool, torch.uint8):
         mask = mask != 0
     return mask.contiguous()
+
+
+_NAMES = ("q", "q_proj", "r_eff", "leaf_lo", "leaf_hi", "leaf_valid",
+          "breakpoints", "points", "point_valid", "live")
+
+
+def _prepare(name: str, tensors: tuple, lead: tuple, leaf_size: int
+             ) -> tuple[tuple, tuple[int, ...]]:
+    """Check one launch's inputs (every array with the leading axes
+    ``lead``: () for one forest, (H,) for H) and lay them out as the
+    kernel reads them.  Returns (arguments, (L, B, d, nl, K, E))."""
+    q, q_proj = tensors[0], tensors[1]
+    dev = q.device
+    if not (q.is_cuda and all(t.device == dev for t in tensors)):
+        raise ValueError(f"{name} kernel needs every input on one CUDA "
+                         f"device")
+    for t in (q, q_proj, tensors[2], tensors[6], tensors[7]):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32, got {t.dtype}")
+    n = len(lead)
+    L, B, K = q_proj.shape[n:]
+    d = q.shape[-1]
+    nl = tensors[3].shape[n + 1]
+    E = tensors[6].shape[-1]
+    npts = nl * leaf_size
+    want = ((B, d), (L, B, K), (L, B), (L, nl, K), (L, nl, K), (L, nl),
+            (L, K, E), (L, npts, d), (L, npts), (L, npts))
+    for key, t, shape in zip(_NAMES, tensors, want):
+        if tuple(t.shape) != lead + shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {lead + shape}")
+    (q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, breakpoints, points,
+     point_valid, live) = tensors
+    args = (q.contiguous(), q_proj.contiguous(), r_eff.contiguous(),
+            leaf_lo.to(torch.int32).contiguous(),
+            leaf_hi.to(torch.int32).contiguous(), _as_bytes(leaf_valid),
+            breakpoints.contiguous(), points.contiguous(),
+            _as_bytes(point_valid), _as_bytes(live))
+    return args, (L, B, d, nl, K, E)
+
+
+def _launch(fn_name: str, args: tuple, out: torch.Tensor,
+            sizes: tuple[int, ...]) -> None:
+    lib = _lib()
+    dev = out.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, fn_name)(*(a.data_ptr() for a in args),
+                                     out.data_ptr(), *sizes, stream)
+    _build.check(lib, "range_rerank", code)
 
 
 def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
@@ -46,47 +103,43 @@ def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
     point_valid, live (L, nl*leaf_size).  All on one CUDA device; float
     inputs float32.  Returns (L, B, nl*leaf_size) f32.  Launches the kernel
     once and counts it in ``range_rerank.launches``."""
-    dev = q.device
-    tensors = (q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, breakpoints,
-               points, point_valid, live)
-    if not (q.is_cuda and all(t.device == dev for t in tensors)):
-        raise ValueError("range_rerank kernel needs every input on one CUDA "
-                         "device")
-    for t in (q, q_proj, r_eff, breakpoints, points):
-        if t.dtype != torch.float32:
-            raise TypeError(f"range_rerank takes float32, got {t.dtype}")
-    L, B, K = q_proj.shape
-    d = q.shape[1]
-    nl = leaf_lo.shape[1]
-    E = breakpoints.shape[2]
-    npts = nl * leaf_size
-    want = {"q": (B, d), "r_eff": (L, B), "leaf_lo": (L, nl, K),
-            "leaf_hi": (L, nl, K), "leaf_valid": (L, nl),
-            "breakpoints": (L, K, E), "points": (L, npts, d),
-            "point_valid": (L, npts), "live": (L, npts)}
-    got = dict(zip(("q", "r_eff", "leaf_lo", "leaf_hi", "leaf_valid",
-                    "breakpoints", "points", "point_valid", "live"),
-                   (q, r_eff, leaf_lo, leaf_hi, leaf_valid, breakpoints,
-                    points, point_valid, live)))
-    for name, shape in want.items():
-        if tuple(got[name].shape) != shape:
-            raise ValueError(f"range_rerank: {name} has shape "
-                             f"{tuple(got[name].shape)}, expected {shape}")
-    args = (q.contiguous(), q_proj.contiguous(), r_eff.contiguous(),
-            leaf_lo.to(torch.int32).contiguous(),
-            leaf_hi.to(torch.int32).contiguous(), _as_bytes(leaf_valid),
-            breakpoints.contiguous(), points.contiguous(),
-            _as_bytes(point_valid), _as_bytes(live))
-    out = torch.empty((L, B, npts), dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.range_rerank_launch(
-            *(a.data_ptr() for a in args), out.data_ptr(), L, B, d, nl, K, E,
-            leaf_size, stream)
-    _build.check(lib, "range_rerank", code)
+    args, (L, B, d, nl, K, E) = _prepare(
+        "range_rerank", (q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid,
+                         breakpoints, points, point_valid, live), (),
+        leaf_size)
+    out = torch.empty((L, B, nl * leaf_size), dtype=torch.float32,
+                      device=q.device)
+    _launch("range_rerank_launch", args, out,
+            (L, B, d, nl, K, E, leaf_size))
     range_rerank.launches += 1
     return out
 
 
 range_rerank.launches = 0
+
+
+def range_rerank_heads(q: torch.Tensor, q_proj: torch.Tensor,
+                       r_eff: torch.Tensor, leaf_lo: torch.Tensor,
+                       leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
+                       breakpoints: torch.Tensor, points: torch.Tensor,
+                       point_valid: torch.Tensor, live: torch.Tensor, *,
+                       leaf_size: int) -> torch.Tensor:
+    """H independent forests in one launch: every argument of
+    :func:`range_rerank` with a leading head axis H (q (H, B, d), r_eff
+    (H, L, B), ...).  Returns (H, L, B, nl*leaf_size) f32; head h equals
+    :func:`range_rerank` on head h's arrays bit for bit.  Counts the launch
+    in ``range_rerank_heads.launches``."""
+    H = q.shape[0]
+    args, (L, B, d, nl, K, E) = _prepare(
+        "range_rerank_heads", (q, q_proj, r_eff, leaf_lo, leaf_hi,
+                               leaf_valid, breakpoints, points, point_valid,
+                               live), (H,), leaf_size)
+    out = torch.empty((H, L, B, nl * leaf_size), dtype=torch.float32,
+                      device=q.device)
+    _launch("range_rerank_heads_launch", args, out,
+            (H, L, B, d, nl, K, E, leaf_size))
+    range_rerank_heads.launches += 1
+    return out
+
+
+range_rerank_heads.launches = 0

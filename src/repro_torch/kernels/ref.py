@@ -240,3 +240,94 @@ def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
         mask = admit[l].repeat_interleave(leaf_size, dim=1) & keep[l][None, :]
         out[l] = torch.where(mask, l2_rerank(q, points[l]), _INF)
     return out
+
+
+def range_rerank_heads(q: torch.Tensor, q_proj: torch.Tensor,
+                       r_eff: torch.Tensor, leaf_lo: torch.Tensor,
+                       leaf_hi: torch.Tensor, leaf_valid: torch.Tensor,
+                       breakpoints: torch.Tensor, points: torch.Tensor,
+                       point_valid: torch.Tensor,
+                       live: Optional[torch.Tensor] = None, *,
+                       leaf_size: int) -> torch.Tensor:
+    """:func:`range_rerank` over H independent forests, head by head.
+
+    Every argument carries a leading head axis H: q (H, B, d); q_proj
+    (H, L, B, K); r_eff (H, B) shared across trees or (H, L, B); leaf
+    arrays (H, L, nl, ...); points (H, L, nl*leaf_size, d); live None means
+    every point is live.  Returns (H, L, B, nl*leaf_size)."""
+    return torch.stack([
+        range_rerank(q[h], q_proj[h], r_eff[h], leaf_lo[h], leaf_hi[h],
+                     leaf_valid[h], breakpoints[h], points[h], point_valid[h],
+                     None if live is None else live[h], leaf_size=leaf_size)
+        for h in range(q.shape[0])])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    block_k: int = 512) -> torch.Tensor:
+    """Blockwise (online-softmax) attention that never holds the (sq, sk)
+    score matrix: the ``flash_attention`` kernel's function.
+
+    q (b, h, sq, dh); k/v (b, h, sk, dh) -> (b, h, sq, dh) in q's dtype,
+    accumulated in f32.  Causal masking is top-left aligned
+    (key position <= query position, both counted from 0).  q is widened
+    to f32 before it is scaled, as the Pallas kernel and the CUDA kernel
+    do, so a bf16 q is rounded once, not twice."""
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    qf = q.to(torch.float32) * scale
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), -_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, block_k):
+        kblk = k[:, :, k0:k0 + block_k].to(torch.float32)
+        vblk = v[:, :, k0:k0 + block_k].to(torch.float32)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kblk)
+        if causal:
+            kpos = torch.arange(k0, k0 + kblk.shape[2], device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], -_INF)
+        m_cur = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                    vblk)
+        m = m_cur
+    return (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
+
+
+def flash_attention_tolerance(want: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for :func:`flash_attention`
+    outputs ``want`` (b, h, sq, dh), in want's own dtype.
+
+    Both sides accumulate in f32 and round once to the output dtype, so in
+    f32 they differ only by summation order: 1e-5 + 1e-5 * |want|.  In
+    bf16 two f32 values that close can still round to neighbouring bf16
+    values, one unit in the last place apart, at most 2^-7 * |want|; the
+    f32 gap itself is covered by 1e-3 of the root mean square of want's
+    head (its (sq, dh) slice), which matters only near zero."""
+    w = want.to(torch.float32)
+    if want.dtype == torch.bfloat16:
+        rms = w.square().mean(dim=(-2, -1), keepdim=True).sqrt()
+        return 2.0 ** -7 * w.abs() + 1e-3 * rms
+    return 1e-5 + 1e-5 * w.abs()
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = False,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Naive softmax attention over the whole (sq, sk) score matrix: the
+    oracle of :func:`flash_attention` at small sizes."""
+    sq, sk, dh = q.shape[2], k.shape[2], q.shape[3]
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        mask = (torch.arange(sk, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        s = s.masked_fill(~mask, -_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)

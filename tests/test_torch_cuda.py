@@ -486,3 +486,140 @@ def test_pdet_across_cards_bit_identical_to_fused(cuda):
             for name in ("rounds", "n_candidates", "final_r"):
                 assert torch.equal(getattr(got.stats, name),
                                    getattr(want.stats, name))
+
+
+# ---------------------------------------------------------------------------
+# The decode slice: flash_attention, range_rerank_heads, the decode loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,sq,sk,dh", [(1, 2, 128, 128, 64),
+                                          (2, 1, 100, 260, 32),
+                                          (1, 1, 128, 384, 128),
+                                          (2, 3, 77, 77, 40),
+                                          (4, 16, 1, 1000, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, sq, sk, dh, causal,
+                                              dtype):
+    """The reference's sweep plus ragged and decode-shaped (sq = 1) cases;
+    causal is top-left aligned, so it runs at any sq and sk.  Tolerances of
+    tests/test_kernels.py (f32 2e-3, bf16 5e-2) against the naive softmax,
+    and against the plain blockwise version the bound both sides' single
+    f32 accumulation allows (ref.flash_attention_tolerance: summation
+    order in f32, one unit in the last place in bf16)."""
+    from repro_torch.kernels import flash_attention as fak
+    gen = torch.Generator(cuda).manual_seed(sq * 7 + sk)
+    q = (torch.randn((b, h, sq, dh), generator=gen, device=cuda)
+         * 0.5).to(dtype)
+    k = (torch.randn((b, h, sk, dh), generator=gen, device=cuda)
+         * 0.5).to(dtype)
+    v = torch.randn((b, h, sk, dh), generator=gen, device=cuda).to(dtype)
+    before = fak.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert fak.flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= ref.flash_attention_tolerance(want)).all()), \
+        float(err.max())
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    if sq * sk <= 128 * 384:
+        naive = ref.attention_reference(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), naive.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_attention_kernel_refuses_bad_inputs(cuda):
+    from repro_torch.kernels import flash_attention as fak
+    x = torch.zeros((2, 8, 16), device=cuda)
+    with pytest.raises(TypeError):
+        fak.flash_attention(x.double(), x.double(), x.double(), causal=False,
+                            scale=1.0)
+    with pytest.raises(ValueError):
+        fak.flash_attention(x, x[:, :, :8].contiguous(), x, causal=False,
+                            scale=1.0)
+    wide = torch.zeros((1, 4, 129), device=cuda)
+    with pytest.raises(ValueError, match="dh"):
+        fak.flash_attention(wide, wide, wide, causal=False, scale=1.0)
+
+
+def test_range_rerank_heads_kernel_matches_plain(cuda):
+    """H = 5 forests of the decode shape (d = 129, g = 2 lanes a head, a
+    done lane, tombstones): the +inf mask of the plain version, finite
+    entries within the range_rerank test's tolerance, and every head equal
+    bit for bit to a single-forest launch on that head's arrays."""
+    H, g, L, K, ls, d, n = 5, 2, 4, 4, 32, 129, 3000
+    parts = [_forest_inputs(cuda, n, g, K, L, ls, d, seed=50 + h)
+             for h in range(H)]
+    f = [p[0] for p in parts]
+    cat = {name: torch.stack([getattr(x, name) for x in f])
+           for name in ("leaf_lo", "leaf_hi", "leaf_valid", "breakpoints",
+                        "valid")}
+    pts = torch.stack([p[1].points_sorted for p in parts])
+    q = torch.stack([p[2] for p in parts])
+    q_proj = torch.stack([p[3] for p in parts])
+    r = torch.tensor(parts[0][4].uniform(0.5, 3.0, (H, g)),
+                     dtype=torch.float32, device=cuda)
+    r[1, 1] = -1.0
+    live = torch.tensor(parts[0][4].random(cat["valid"].shape) > 0.1,
+                        device=cuda)
+    args = (q, q_proj, r, cat["leaf_lo"], cat["leaf_hi"], cat["leaf_valid"],
+            cat["breakpoints"], pts, cat["valid"], live)
+    before = rr.range_rerank_heads.launches
+    got = ops.range_rerank_heads(*args, leaf_size=ls)
+    assert rr.range_rerank_heads.launches == before + 1
+    want = ref.range_rerank_heads(*args, leaf_size=ls)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert fin.any() and (~fin).any()
+    max_sq = float((pts ** 2).sum(-1).max())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4,
+                               atol=1e-4 * max_sq)
+    assert torch.isinf(got[1, :, 1]).all()
+    for h in range(H):
+        single = rr.range_rerank(
+            q[h], q_proj[h], r[h].expand(L, g), cat["leaf_lo"][h],
+            cat["leaf_hi"][h], cat["leaf_valid"][h], cat["breakpoints"][h],
+            pts[h], cat["valid"][h], live[h], leaf_size=ls)
+        assert torch.equal(got[h], single), h
+
+
+def test_lsh_decoder_on_the_card_matches_the_cpu(cuda):
+    """A short LSHDecoder loop over one index state on both devices (the
+    CPU index's forests moved to the card): the same candidate tables and
+    outputs within 1e-5; on the card the retrieval launches the heads
+    kernel once a round."""
+    from repro_torch.decode import (HeadForest, KVCacheIndex, KVSpec,
+                                    LSHDecoder)
+    rng = np.random.default_rng(3)
+    b, S, hk, g, dh = 2, 1024, 2, 2, 64
+    k = (rng.standard_normal((b, S, hk, dh)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, S, hk, dh)).astype(np.float32)
+    prefill = S - 24
+    spec = KVSpec(m_top=32, delta_capacity=32)
+    cpu = KVCacheIndex.prefill(k[:, :prefill], torch.Generator().manual_seed(0),
+                               spec, device="cpu")
+    card = KVCacheIndex(spec, cpu.params,
+                        cpu.A.to(cuda), b, hk, dh, cpu.R2.to(cuda),
+                        HeadForest(*(t.to(cuda) for t in cpu.forest)),
+                        cpu._aug.copy())
+    dec = {"cpu": LSHDecoder(cpu, window=16, sinks=4, refresh_every=4),
+           "cuda": LSHDecoder(card, window=16, sinks=4, refresh_every=4)}
+    caches = {dev: (torch.tensor(k, device=dev), torch.tensor(v, device=dev))
+              for dev in dec}
+    before = rr.range_rerank_heads.launches
+    for t in range(12):
+        length = prefill + t + 1
+        pos = int(rng.integers(0, prefill))
+        q = np.repeat(k[:, pos][:, :, None, :], g, 2).reshape(
+            b, 1, hk * g, dh) * 8.0
+        out = {dev: dec[dev].step(torch.tensor(q, device=dev), *caches[dev],
+                                  caches[dev][0][:, length - 1], length)
+               for dev in dec}
+        assert torch.equal(dec["cuda"]._positions.cpu(),
+                           dec["cpu"]._positions)
+        torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=1e-5,
+                                   atol=1e-5)
+    assert dec["cuda"].n_refreshes == 3
+    assert rr.range_rerank_heads.launches > before

@@ -240,3 +240,110 @@ def test_project_and_encode_take_the_four_impl_names():
     for impl, c in codes.items():
         assert c.dtype == torch.int32 and torch.equal(c, codes["auto"]), impl
     assert (lpk.lsh_project.launches, ebk.encode_bins.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# (d) flash_attention and the head axis of range_rerank (the decode slice)
+# ---------------------------------------------------------------------------
+
+# The shapes of tests/test_kernels.py's flash sweep (its causal case with
+# sq != sk, which it skips, runs at sq = sk = 384 here); its tolerances: f32
+# 2e-3 against the Pallas kernel (its own statement), 2e-5 against the
+# blockwise oracle and the naive softmax (the same online-softmax
+# arithmetic in f32), bf16 5e-2; and beside them the tighter bound of
+# ref.flash_attention_tolerance (f32 summation order, one bf16 unit in
+# the last place), which a wrong kernel cannot meet.
+_FLASH = [(1, 2, 128, 128, 64, False), (1, 2, 128, 128, 64, True),
+          (2, 1, 100, 260, 32, False), (1, 1, 128, 384, 128, False),
+          (1, 1, 384, 384, 128, True)]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,dh,causal", _FLASH)
+def test_flash_attention_plain_matches_reference(b, h, sq, sk, dh, causal):
+    from repro_torch.kernels import flash_attention as fak
+    rng = np.random.default_rng(sq + sk + dh)
+    q = (rng.standard_normal((b, h, sq, dh)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((b, h, sk, dh)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((b, h, sk, dh)).astype(np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    kernel = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal,
+                                             interpret=True))
+    oracle = np.asarray(jref.flash_attention(jq, jk, jv, causal=causal))
+    naive = np.asarray(jref.attention_reference(jq, jk, jv, causal=causal))
+    before = fak.flash_attention.launches
+    got = tops.flash_attention(torch.tensor(q), torch.tensor(k),
+                               torch.tensor(v), causal=causal)
+    assert fak.flash_attention.launches == before      # CPU: plain
+    assert got.dtype == torch.float32 and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.numpy(), kernel, rtol=2e-3, atol=2e-3)
+    # The same f32 online softmax, in another summation order.
+    assert bool(((got - torch.tensor(kernel)).abs() <=
+                 tref.flash_attention_tolerance(got)).all())
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), naive, rtol=2e-5, atol=2e-5)
+    plain_naive = tref.attention_reference(torch.tensor(q), torch.tensor(k),
+                                           torch.tensor(v), causal=causal)
+    np.testing.assert_allclose(plain_naive.numpy(), naive, rtol=2e-5,
+                               atol=2e-5)
+    again = tops.flash_attention(torch.tensor(q), torch.tensor(k),
+                                 torch.tensor(v), causal=causal,
+                                 interpret=True, scale=0.5)
+    want = jref.attention_reference(jq, jk, jv, causal=causal, scale=0.5)
+    np.testing.assert_allclose(again.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_plain_bf16_matches_reference():
+    rng = np.random.default_rng(11)
+    shapes = [(1, 2, 128, 64)] * 3
+    scales = (0.5, 0.5, 1.0)
+    pairs = [_bf16_pair(rng, s, jnp.bfloat16) for s in shapes]
+    (jq, tq), (jk, tk), (jv, tv) = [
+        (j * sc, t * sc) for (j, t), sc in zip(pairs, scales)]
+    want = jops.flash_attention(jq, jk, jv, causal=True, interpret=True)
+    naive = jref.attention_reference(jq, jk, jv, causal=True)
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    for w in (want, naive):
+        # Both sides scale q in f32 and round once to bf16: one bf16 unit
+        # in the last place apart at most (ref.flash_attention_tolerance).
+        w = torch.tensor(np.asarray(w, np.float32)).to(torch.bfloat16)
+        err = (got.float() - w.float()).abs()
+        assert bool((err <= tref.flash_attention_tolerance(w)).all()), \
+            float(err.max())
+
+
+@pytest.mark.parametrize("per_tree,use_live", [(False, True), (True, False)])
+def test_range_rerank_heads_plain_matches_reference(per_tree, use_live):
+    """H = 3 forests, each with its own queries and radii: the plain heads
+    version against the reference's (the vmap of its single-forest op, in
+    interpret mode), and head by head against the single-forest plain
+    version (bit-identical: the same function on the same arrays)."""
+    H, B, K, L, ls, d = 3, 5, 4, 3, 16, 8
+    heads = [_rerank_inputs(B, 600, K, L, ls, d, seed=40 + h)
+             for h in range(H)]
+    a = {key: np.stack([hd[0][key] for hd in heads])
+         for key in heads[0][0]}
+    rng = heads[0][1]
+    a["r"] = rng.uniform(0.5, 3.0, (H, L, B) if per_tree else (H, B)
+                         ).astype(np.float32)
+    a["r"][:, ..., 1] = -1.0                       # a done lane in each head
+    live = a["live"] if use_live else None
+    want = np.asarray(jops.range_rerank_heads(
+        *(jnp.asarray(a[k]) for k in _ORDER[:-1]),
+        None if live is None else jnp.asarray(live), leaf_size=ls,
+        interpret=True))
+    args_t = [torch.tensor(a[k]) for k in _ORDER[:-1]]
+    live_t = None if live is None else torch.tensor(live)
+    got = tops.range_rerank_heads(*args_t, live_t, leaf_size=ls).numpy()
+    assert got.shape == want.shape == (H, L, B, heads[0][0]["points"].shape[1])
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    assert fin.any() and (~fin).any()
+    np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+    for h in range(H):
+        single = tops.range_rerank(
+            *(t[h] for t in args_t), None if live_t is None else live_t[h],
+            leaf_size=ls)
+        assert torch.equal(torch.tensor(got[h]), single)
+    assert np.isinf(got[:, :, 1]).all()
