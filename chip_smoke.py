@@ -96,14 +96,26 @@ Phases, each printed as one line; any failure exits non-zero:
              max) of fused and of pdet at S = 1 and 4; save at S = 4 ->
              load(device='cuda') (back as S = 1 on one card) -> the same
              answers, and again resharded onto 4 shards of the card.
+  wide_rows  the width limits lifted: range_rerank at d = 1,536 (50,000
+             rows, B = 100), range_rerank_heads at d = 1,537 (4 forests,
+             each head also bit-identical to a single-forest launch), both
+             with the +inf mask of the plain version and finite entries
+             within range_rerank's tolerance; project_encode_pack at
+             d = 2,048 (16,384 rows) and encode_pack at L*K = 2,048
+             (K = 16, L = 128: two launches in one call), bit-identical.
   flash_attention  the kernel against its plain version (blockwise online
-             softmax) at Qwen3-1.7B's prefill widths (b = 1, h = 16,
-             sq = sk = 32,768, dh = 128, causal; prefill_32k's batch 32
-             cut to 1) in f32 and bf16, and at tests/test_kernels.py's
-             sweep (sk = 260 ragged, dh = 32, 64, 128; causal and not):
-             within 2e-3 (f32) and 5e-2 (bf16); CUDA-event times of the
-             kernel, its plain version and scaled_dot_product_attention
-             (a yardstick the port never calls) at the prefill widths.
+             softmax) within ref.flash_attention_tolerance, each call on
+             the path flash_attention.path names: Qwen3-1.7B's prefill
+             widths (b = 1, h = 16, sq = sk = 32,768, dh = 128, causal;
+             prefill_32k's batch 32 cut to 1) in f32 (CUDA cores) and bf16
+             (tensor cores: the SASS of its kernels must hold HMMA, read
+             with cuobjdump), decode_path's dense step shape (b = 4,
+             h = 16, sq = 1, sk = 32,768, dh = 128; split-key path) in f32
+             and bf16, and a sweep (tests/test_kernels.py's shapes, sk =
+             260 ragged, dh = 32-256, sq = 3; causal and not); CUDA-event
+             times of the kernel, its plain version and
+             scaled_dot_product_attention (a yardstick the port never
+             calls) at the prefill and decode shapes.
   decode_path  LSH decode over one attention layer's KV cache at
              Qwen3-1.7B's widths (16 query heads, 8 kv heads, dh = 128;
              decode_32k's S = 32,768 at batch 4 instead of 128, f32
@@ -113,8 +125,9 @@ Phases, each printed as one line; any failure exits non-zero:
              (encode_pack once a head), then 256 LSHDecoder steps
              (window 64, sinks 4, refresh every 12; KVSpec() defaults, so
              two seals at delta_capacity 128), each beside a dense decode
-             step through the flash_attention kernel; range_rerank_heads
-             must launch once a retrieval round for all 32 heads.  Then:
+             step through the flash_attention kernel (its split-key path,
+             every step); range_rerank_heads must launch once a retrieval
+             round for all 32 heads.  Then:
              range_rerank_heads against its plain version at the
              estimated radius and head by head bit-identical to the
              single-forest kernel; a retrieval at r_min = 1e6 in one round
@@ -1319,10 +1332,14 @@ def check_flash_attention(torch, b: int, h: int, sq: int, sk: int, dh: int,
     k = (torch.randn((b, h, sk, dh), generator=gen, device="cuda")
          * 0.5).to(dtype)
     v = torch.randn((b, h, sk, dh), generator=gen, device="cuda").to(dtype)
+    which = fak.path(sq, dh, dtype)
     before = fak.flash_attention.launches
+    on_path = fak.flash_attention.paths[which]
     got = ops.flash_attention(q, k, v, causal=causal).float()
     require(fak.flash_attention.launches == before + 1,
             "ops.flash_attention did not launch the kernel")
+    require(fak.flash_attention.paths[which] == on_path + 1,
+            f"flash_attention did not take its {which} path")
     want = ref.flash_attention(q, k, v, causal=causal)
     allowed = ref.flash_attention_tolerance(want)
     want = want.float()
@@ -1339,7 +1356,7 @@ def check_flash_attention(torch, b: int, h: int, sq: int, sk: int, dh: int,
     nbytes = q.element_size() * (2 * b * h * sq * dh + 2 * b * h * sk * dh)
     t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    out = dict(b=b, h=h, sq=sq, sk=sk, dh=dh, causal=causal,
+    out = dict(b=b, h=h, sq=sq, sk=sk, dh=dh, causal=causal, path=which,
                dtype=str(dtype).split(".")[-1], max_abs_err=float(err.max()),
                worst_ratio=worst, out_rms=float(want.square().mean().sqrt()),
                bound_ms=max(t_ops, t_bytes),
@@ -1361,15 +1378,152 @@ def check_flash_attention(torch, b: int, h: int, sq: int, sk: int, dh: int,
     return out
 
 
+def mma_sass() -> dict:
+    """HMMA (tensor-core) instructions in the SASS of each kernel of the
+    built flash_attention library, by kernel, from cuobjdump -sass."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "flash_attention"))], capture_output=True, text=True,
+        check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        kind = next((k for k in ("flash_mma_kernel", "split_kernel",
+                                 "combine_kernel", "flash_simt_kernel")
+                     if k in name), name)
+        counts[kind] = counts.get(kind, 0) + len(re.findall(r"\bHMMA\b",
+                                                            part))
+    return counts
+
+
+def _wide_forest(torch, n: int, d: int, K: int, L: int, ls: int, B: int,
+                 seed: int) -> tuple:
+    """A forest over n random rows of width d on the card, B queries near
+    its first rows, and per-lane radii at the 5 % point of each lane's leaf
+    lower bounds, so that some leaves are admitted and most are not."""
+    from repro_torch.core import detree
+    from repro_torch.core.query import make_fused_plan
+    from repro_torch.kernels import ref
+    gen = torch.Generator("cuda").manual_seed(seed)
+    data = torch.randn((n, d), generator=gen, device="cuda")
+    A = torch.randn((d, L * K), generator=gen, device="cuda")
+    q = data[:B] + 0.3 * torch.randn((B, d), generator=gen, device="cuda")
+    forest = detree.build_forest(data @ A, K, L, Nr=64, leaf_size=ls,
+                                 breakpoint_method="full_sort")
+    plan = make_fused_plan(data, forest)
+    q_proj = (q @ A).reshape(B, L, K).permute(1, 0, 2).contiguous()
+    lb = ref.forest_leaf_lb(q_proj, forest.leaf_lo, forest.leaf_hi,
+                            forest.leaf_valid, forest.breakpoints)
+    flat = lb.permute(1, 0, 2).reshape(B, -1)
+    r = flat.kthvalue(max(1, flat.shape[1] // 20), dim=1).values
+    return forest, plan.points_sorted, q, q_proj, r.contiguous()
+
+
+def _held_rerank(torch, tag: str, got, want, points) -> float:
+    """range_rerank's check: the same +inf mask, finite entries within
+    1e-4 * |plain| + 1e-4 * max |x|^2.  Returns the largest error."""
+    require(torch.equal(torch.isinf(got), torch.isinf(want)),
+            f"{tag}: +inf masks differ from the plain version")
+    fin = torch.isfinite(want)
+    require(bool(fin.any() and (~fin).any()),
+            f"{tag}: admission is all or nothing")
+    max_sq = float((points * points).sum(-1).max())
+    err = (got[fin] - want[fin]).abs()
+    require(bool((err <= 1e-4 * want[fin].abs() + 1e-4 * max_sq).all()),
+            f"{tag}: finite entries outside tolerance (max err "
+            f"{float(err.max())})")
+    return float(err.max())
+
+
+def wide_rows(torch) -> dict:
+    """The kernels at widths their first versions refused: range_rerank at
+    d = 1,536, range_rerank_heads at d = 1,537, project_encode_pack at
+    d = 2,048 and encode_pack at L*K = 2,048, each against its plain
+    version (bit-identical where the kernel is)."""
+    from repro_torch.kernels import range_rerank as rrk
+    from repro_torch.kernels import ref
+    out = {}
+    f, pts, q, q_proj, r = _wide_forest(torch, 50_000, 1536, 16, 4, 64, 100,
+                                        seed=21)
+    L, B = q_proj.shape[:2]
+    args = (q, q_proj, r.expand(L, B).contiguous(), f.leaf_lo, f.leaf_hi,
+            f.leaf_valid, f.breakpoints, pts, f.valid, f.valid)
+    got = rrk.range_rerank(*args, leaf_size=f.leaf_size)
+    want = ref.range_rerank(*args, leaf_size=f.leaf_size)
+    torch.cuda.synchronize()
+    out["range_rerank_d1536"] = dict(
+        n=50_000, B=B, max_abs_err=_held_rerank(torch, "range_rerank d=1536",
+                                                got, want, pts),
+        finite=int(torch.isfinite(want).sum()),
+        ms=time_ms(torch, lambda: rrk.range_rerank(*args,
+                                                   leaf_size=f.leaf_size)))
+    del f, pts, q, q_proj, args, got, want
+    parts = [_wide_forest(torch, 8192, 1537, 4, 4, 32, 2, seed=30 + h)
+             for h in range(4)]
+    fs = [p[0] for p in parts]
+    H, ls = len(parts), fs[0].leaf_size
+    hargs = (torch.stack([p[2] for p in parts]),
+             torch.stack([p[3] for p in parts]),
+             torch.stack([p[4] for p in parts])[:, None, :].expand(
+                 H, 4, 2).contiguous(),
+             *(torch.stack([getattr(x, name) for x in fs])
+               for name in ("leaf_lo", "leaf_hi", "leaf_valid",
+                            "breakpoints")),
+             torch.stack([p[1] for p in parts]),
+             torch.stack([x.valid for x in fs]),
+             torch.stack([x.valid for x in fs]))
+    got = rrk.range_rerank_heads(*hargs, leaf_size=ls)
+    want = ref.range_rerank_heads(*hargs, leaf_size=ls)
+    torch.cuda.synchronize()
+    err = _held_rerank(torch, "range_rerank_heads d=1537", got, want,
+                       hargs[7])
+    for h in range(H):
+        single = rrk.range_rerank(*(a[h] for a in hargs), leaf_size=ls)
+        require(torch.equal(got[h], single),
+                f"range_rerank_heads d=1537: head {h} differs from a "
+                f"single-forest launch")
+    out["range_rerank_heads_d1537"] = dict(
+        H=H, n=8192, g=2, max_abs_err=err, heads_bit_identical=True,
+        ms=time_ms(torch, lambda: rrk.range_rerank_heads(*hargs,
+                                                         leaf_size=ls)))
+    del parts, fs, hargs, got, want
+    x = torch.randn((16384, 2048), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(40))
+    out["project_encode_pack_d2048"] = check_project_encode_pack(
+        torch, x, 16, 4, 256, "d=2048")
+    del x
+    out["encode_pack_LK2048"] = check_encode_pack(torch, 16384, K=16, L=128,
+                                                  Nr=256)
+    line("wide_rows", **{k: v for k, v in out.items()
+                         if k.startswith("range_rerank")})
+    return out
+
+
 def flash_phase(torch) -> list:
     """Qwen3-1.7B's prefill widths (prefill_32k's batch 32 cut to 1) in f32
-    and bf16, timed, then tests/test_kernels.py's sweep with its ragged
-    sk = 260."""
+    and bf16, and decode_path's dense step shape (b = 4, sq = 1, sk =
+    32,768) in f32 and bf16, timed; then tests/test_kernels.py's sweep with
+    its ragged sk = 260, head widths 192 and 256 and sq = 3.  The bf16
+    prefill must run tensor-core instructions (HMMA in its SASS)."""
+    hmma = mma_sass()
+    require(hmma.get("flash_mma_kernel", 0) > 0,
+            f"no HMMA in the bf16 prefill kernel's SASS: {hmma}")
+    line("flash_sass", hmma_by_kernel=hmma)
     cases = [check_flash_attention(torch, 1, QWEN3_HEADS, 32768, 32768,
                                    QWEN3_DH, True, dt, timed=True)
              for dt in (torch.float32, torch.bfloat16)]
+    for dt in (torch.float32, torch.bfloat16):
+        case = check_flash_attention(torch, 4, QWEN3_HEADS, 1, 32768,
+                                     QWEN3_DH, False, dt, timed=True)
+        require(case["path"] == "split", "the decode shape did not take "
+                "the split-key path")
+        cases.append(case)
     for b, h, sq, sk, dh in ((1, 2, 128, 128, 64), (2, 1, 100, 260, 32),
-                             (1, 1, 128, 384, 128)):
+                             (1, 1, 128, 384, 128), (1, 2, 130, 200, 192),
+                             (2, 2, 64, 300, 256), (4, 16, 3, 1000, 128)):
         for causal in (False, True):
             for dt in (torch.float32, torch.bfloat16):
                 cases.append(check_flash_attention(
@@ -1529,6 +1683,7 @@ def decode_path(torch, *, b: int = 4, S: int = 32768, steps: int = 256
     flash_attention kernel."""
     from repro_torch.decode import (KVCacheIndex, KVSpec, LSHDecoder,
                                     sparse_decode_attention)
+    from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ops
     hk, dh = QWEN3_KV_HEADS, QWEN3_DH
     g = QWEN3_HEADS // hk
@@ -1580,6 +1735,7 @@ def decode_path(torch, *, b: int = 4, S: int = 32768, steps: int = 256
     dec = LSHDecoder(index, window=window, sinks=sinks,
                      refresh_every=refresh)
     step_ms, dense_ms, cos = [], [], []
+    split_before = fak.flash_attention.paths["split"]
     for t in range(steps):
         length = prefill + t + 1
         q = _planted_query(torch, k_cache, int(targets[t // refresh]), g,
@@ -1596,6 +1752,7 @@ def decode_path(torch, *, b: int = 4, S: int = 32768, steps: int = 256
         dense_ms.append((t3 - t2) * 1e3)
         cos.append(_cosine(out, dense))
     launches = _stream_counts()
+    dense_split = fak.flash_attention.paths["split"] - split_before
     index.retrieve, index._seal = retrieve, seal
     rounds_total = sum(r for _, r in retrievals)
     require(launches["range_rerank_heads"] == rounds_total > 0,
@@ -1603,8 +1760,9 @@ def decode_path(torch, *, b: int = 4, S: int = 32768, steps: int = 256
             f"times for {rounds_total} retrieval rounds")
     require(launches["range_rerank"] == 0,
             "the decode path launched the single-forest range_rerank")
-    require(launches["flash_attention"] == steps,
-            "the dense decode steps did not all launch flash_attention")
+    require(launches["flash_attention"] == steps == dense_split,
+            "the dense decode steps did not all launch flash_attention's "
+            "split-key path")
     require(index.seals == steps // spec.delta_capacity == len(seal_ms),
             f"{index.seals} seals in {steps} steps")
     require(launches["encode_pack"] == index.H * (1 + index.seals),
@@ -1672,7 +1830,7 @@ def decode_path(torch, *, b: int = 4, S: int = 32768, steps: int = 256
         sinks=sinks, refresh_every=refresh, data_seconds=data_s,
         prefill_seconds=prefill_s, step_ms=spread(step_ms),
         dense_step_ms=spread(dense_ms), dense_step_ms_timed=dense_step_ms,
-        dense_kernel_ms=dense_kernel_ms,
+        dense_kernel_ms=dense_kernel_ms, dense_split_launches=dense_split,
         retrieval_ms=spread([m for m, _ in retrievals]),
         retrieval_rounds=[r for _, r in retrievals],
         n_refreshes=dec.n_refreshes, seal_ms=seal_ms, seals=index.seals,
@@ -1803,7 +1961,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     stream = streaming_path(torch, n)
     torch.cuda.empty_cache()
+    wide = wide_rows(torch)
+    torch.cuda.empty_cache()
     flash = flash_phase(torch)
+    prefill_bf16, decode32, decode16 = flash[1], flash[2], flash[3]
     decode = decode_path(torch)
 
     print(json.dumps({"kernels": [
@@ -1811,7 +1972,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/encode_pack.cu",
          "replaces": "src/repro/kernels/build_fused.py:105",
          "launches": launches["encode_pack"],
-         "max_abs_err": max(enc["max_abs_err"], enc4["max_abs_err"]),
+         "max_abs_err": max(enc["max_abs_err"], enc4["max_abs_err"],
+                            wide["encode_pack_LK2048"]["max_abs_err"]),
          "ms": enc["ms"], "plain_ms": enc["plain_ms"],
          "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
          "library_ms": None},
@@ -1819,7 +1981,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/range_rerank.cu",
          "replaces": "src/repro/kernels/range_rerank.py:90",
          "launches": launches["range_rerank"],
-         "max_abs_err": max(rr0["max_abs_err"], rr2["max_abs_err"]),
+         "max_abs_err": max(rr0["max_abs_err"], rr2["max_abs_err"],
+                            wide["range_rerank_d1536"]["max_abs_err"]),
          "ms": rr0["ms"], "plain_ms": rr0["plain_ms"],
          "bound_ms": rr0["bound_ms"], "bound_by": rr0["bound_by"],
          "library_ms": None},
@@ -1843,7 +2006,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/project_encode_pack.cu",
          "replaces": "src/repro/kernels/build_fused.py:128",
          "launches": stream["launches"]["project_encode_pack"],
-         "max_abs_err": max(p["max_abs_err"] for p in pep),
+         "max_abs_err": max(p["max_abs_err"] for p in
+                            pep + [wide["project_encode_pack_d2048"]]),
          "ms": pep[0]["ms"], "plain_ms": pep[0]["plain_ms"],
          "bound_ms": pep[0]["bound_ms"], "bound_by": pep[0]["bound_by"],
          "library_ms": None},
@@ -1867,7 +2031,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/range_rerank.cu",
          "replaces": "src/repro/kernels/ops.py:187",
          "launches": decode["launches"]["range_rerank_heads"],
-         "max_abs_err": decode["heads"]["max_abs_err"],
+         "max_abs_err": max(decode["heads"]["max_abs_err"],
+                            wide["range_rerank_heads_d1537"]["max_abs_err"]),
          "ms": decode["heads"]["ms"], "plain_ms": decode["heads"]["plain_ms"],
          "bound_ms": decode["heads"]["bound_ms"],
          "bound_by": decode["heads"]["bound_by"], "library_ms": None},
@@ -1882,7 +2047,18 @@ def main() -> int:
                                  if c["dtype"] == "bfloat16"),
          "ms": flash[0]["ms"], "plain_ms": flash[0]["plain_ms"],
          "bound_ms": flash[0]["bound_ms"], "bound_by": flash[0]["bound_by"],
-         "library_ms": flash[0]["library_ms"]},
+         "library_ms": flash[0]["library_ms"],
+         "decode_ms": decode32["ms"], "decode_bound_ms": decode32["bound_ms"],
+         "decode_library_ms": decode32["library_ms"],
+         "decode_plain_ms": decode32["plain_ms"],
+         "decode_bf16_ms": decode16["ms"],
+         "decode_bf16_bound_ms": decode16["bound_ms"],
+         "decode_bf16_library_ms": decode16["library_ms"],
+         "prefill_bf16_ms": prefill_bf16["ms"],
+         "prefill_bf16_bound_ms": prefill_bf16["bound_ms"],
+         "prefill_bf16_plain_ms": prefill_bf16["plain_ms"],
+         "prefill_bf16_library_ms": prefill_bf16["library_ms"],
+         "launches_by_path": {"split": decode["dense_split_launches"]}},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,17 +20,24 @@ import torch
 
 from repro_torch.kernels import _build
 
-# The kernel keeps a (32, L*K + 1) tile of proj (f32) and of codes (u8) in
-# shared memory, which holds at most 227 KB per block on an H100.
+# A block keeps a (32, L_g*K + 1) tile of projections (f32) and of codes
+# (u8) in shared memory, which holds at most 227 KB on an H100; past that a
+# call launches once per group of L_g trees (``_tree_groups``).
 _MAX_SMEM = 232448
-_MAX_DIMS = _MAX_SMEM // (32 * 5) - 1
+_ROWS = 32
+_CHUNK = 256           # x columns project_encode_pack stages at once
 
 
-def _project_smem_bytes(d: int, D: int) -> int:
-    """Shared memory of one ``project_encode_pack`` block (the .cu file's
-    smem_bytes): a (32, d) tile of x padded to float4 rows and the
-    (32, D + 1) f32 and u8 tiles of encode_pack."""
-    return 4 * 32 * ((d + 3) // 4 * 4) + 32 * (D + 1) * 5
+def _tree_groups(K: int, L: int, spare: int) -> list[tuple[int, int]]:
+    """Split trees 0..L-1 into runs [l0, l1) whose (l1 - l0)*K projected
+    dims fit a block's shared memory beside ``spare`` bytes: the
+    (32, L_g*K + 1) f32 and u8 tiles of encode_pack_tile.cuh take
+    32 * (L_g*K + 1) * 5 bytes.  One run (one launch) up to L*K = 1,451."""
+    per = (_MAX_SMEM - spare - _ROWS * 5) // (_ROWS * 5 * K)
+    if per < 1:
+        raise ValueError(f"K = {K} projected dims of one tree do not fit "
+                         f"a block's shared memory")
+    return [(l0, min(L, l0 + per)) for l0 in range(0, L, per)]
 
 
 def _load(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
@@ -55,9 +62,6 @@ def _checked_dims(breakpoints: torch.Tensor, D: int, K: int,
                          f"{tuple(breakpoints.shape)} do not fit L={L}, "
                          f"K={K}")
     check_nr(E - 1)
-    if D > _MAX_DIMS:
-        raise ValueError(f"L*K = {D} exceeds the kernel's shared-memory "
-                         f"tile ({_MAX_DIMS} dims)")
     _, hi_bits, lo_bits = key_bit_budget(K)
     return E - 1, hi_bits, lo_bits
 
@@ -87,20 +91,22 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
     """proj (n, L*K) f32, breakpoints (L*K, Nr+1) f32, both contiguous on
     one CUDA device -> (proj_t (L, n, K) f32, codes_t (L, n, K) int32,
     key_hi (L, n) int64, key_lo (L, n) int64), key words holding uint32
-    values.  Launches the kernel once and counts it in
+    values.  One kernel launch per group of trees whose tile fits a
+    block (one group up to L*K = 1,451), counted once in
     ``encode_pack.launches``."""
     _check_inputs("encode_pack", proj, breakpoints)
     n, D = proj.shape
     Nr, hi_bits, lo_bits = _checked_dims(breakpoints, D, K, L)
     out = _outputs(n, K, L, proj.device)
-    lib = _load("encode_pack", 6, 5)
+    lib = _load("encode_pack", 6, 6)
     with torch.cuda.device(proj.device):
         stream = torch.cuda.current_stream(proj.device).cuda_stream
-        code = lib.encode_pack_launch(
-            proj.data_ptr(), breakpoints.data_ptr(),
-            *(o.data_ptr() for o in out), n, K, L, Nr, hi_bits, lo_bits,
-            stream)
-    _build.check(lib, "encode_pack", code)
+        for l0, l1 in _tree_groups(K, L, 0):
+            code = lib.encode_pack_launch(
+                proj[:, l0 * K:].data_ptr(), breakpoints[l0 * K].data_ptr(),
+                *(o[l0].data_ptr() for o in out), n, D, K, l1 - l0, Nr,
+                hi_bits, lo_bits, stream)
+            _build.check(lib, "encode_pack", code)
     encode_pack.launches += 1
     return out
 
@@ -115,31 +121,27 @@ def project_encode_pack(x: torch.Tensor, a: torch.Tensor,
     """x (n, d) f32, a (d, L*K) f32, breakpoints (L*K, Nr+1) f32, all
     contiguous on one CUDA device -> encode_pack's outputs for x @ a, the
     projection summed in d order inside the kernel (bit-identical to
-    :func:`repro_torch.kernels.ref.project_encode_pack`).  Raises
-    ``ValueError`` when a block's tiles (32 rows of x, 32 rows of
-    projections) do not fit its shared memory.  Launches the kernel once and counts it in
-    ``project_encode_pack.launches``."""
+    :func:`repro_torch.kernels.ref.project_encode_pack`) for any d.  One
+    kernel launch per group of trees whose tile fits a block, counted once
+    in ``project_encode_pack.launches``."""
     _check_inputs("project_encode_pack", x, a, breakpoints)
     n, d = x.shape
     D = breakpoints.shape[0]
     if tuple(a.shape) != (d, D):
         raise ValueError(f"a {tuple(a.shape)} is not (d, L*K) = ({d}, {D})")
     Nr, hi_bits, lo_bits = _checked_dims(breakpoints, D, K, L)
-    smem = _project_smem_bytes(d, D)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"32-row tiles of d = {d} inputs and L*K = {D} projections "
-            f"need {smem} bytes of shared memory, above a block's "
-            f"{_MAX_SMEM}; project_encode_pack does not take d this large")
     out = _outputs(n, K, L, x.device)
-    lib = _load("project_encode_pack", 7, 6)
+    lib = _load("project_encode_pack", 7, 7)
+    x_tile = 4 * _ROWS * ((min(d, _CHUNK) + 3) // 4 * 4)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.project_encode_pack_launch(
-            x.data_ptr(), a.data_ptr(), breakpoints.data_ptr(),
-            *(o.data_ptr() for o in out), n, d, K, L, Nr, hi_bits, lo_bits,
-            stream)
-    _build.check(lib, "project_encode_pack", code)
+        for l0, l1 in _tree_groups(K, L, x_tile):
+            code = lib.project_encode_pack_launch(
+                x.data_ptr(), a[:, l0 * K:].data_ptr(),
+                breakpoints[l0 * K].data_ptr(),
+                *(o[l0].data_ptr() for o in out), n, d, D, K, l1 - l0, Nr,
+                hi_bits, lo_bits, stream)
+            _build.check(lib, "project_encode_pack", code)
     project_encode_pack.launches += 1
     return out
 

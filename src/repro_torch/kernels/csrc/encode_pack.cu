@@ -22,6 +22,10 @@
 // shared memory with coalesced loads; the encode, the per-tree writes and
 // the key pack then run from shared memory (encode_pack_tile.cuh, shared
 // with project_encode_pack.cu, which fills the same tile by projecting).
+// The tile grows with L*K (5 bytes a dim a row); past 1,451 dims it no
+// longer fits a block, so the wrapper launches once per group of trees
+// that fits: proj is read through a row stride ld, and the group's rows of
+// bp and L-slices of the outputs are contiguous.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,7 +41,7 @@ __global__ void __launch_bounds__(kThreads) encode_pack_kernel(
     const float* __restrict__ proj, const float* __restrict__ bp,
     float* __restrict__ proj_t, int32_t* __restrict__ codes_t,
     int64_t* __restrict__ key_hi, int64_t* __restrict__ key_lo, int64_t n,
-    int K, int L, int Nr, int hi_bits, int lo_bits) {
+    int ld, int K, int L, int Nr, int hi_bits, int lo_bits) {
   extern __shared__ float x_s[];          // (kRows, D + 1) tile of proj
   const int D = L * K;
   const int DP = D + 1;
@@ -45,11 +49,12 @@ __global__ void __launch_bounds__(kThreads) encode_pack_kernel(
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
   const int rows = static_cast<int>(min(static_cast<int64_t>(kRows), n - row0));
 
-  // stage the tile: rows*D consecutive floats of proj
-  const float* src = proj + row0 * D;
+  // stage the tile: rows runs of D consecutive floats, ld apart
+  const float* src = proj + row0 * ld;
   for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
     const int r = e / D;
-    x_s[r * DP + (e - r * D)] = src[e];
+    const int c = e - r * D;
+    x_s[r * DP + c] = src[r * ld + c];
   }
   __syncthreads();
   encode_pack_tile::encode_and_pack(x_s, codes_s, rows, row0, n, bp, proj_t,
@@ -62,8 +67,9 @@ __global__ void __launch_bounds__(kThreads) encode_pack_kernel(
 extern "C" int encode_pack_launch(const float* proj, const float* bp,
                                   float* proj_t, int32_t* codes_t,
                                   int64_t* key_hi, int64_t* key_lo,
-                                  int64_t n, int K, int L, int Nr,
-                                  int hi_bits, int lo_bits, void* stream) {
+                                  int64_t n, int ld, int K, int L,
+                                  int Nr, int hi_bits, int lo_bits,
+                                  void* stream) {
   if (n == 0) return 0;
   const int64_t blocks = (n + kRows - 1) / kRows;
   const size_t smem = encode_pack_tile::tile_bytes(L * K);
@@ -75,7 +81,7 @@ extern "C" int encode_pack_launch(const float* proj, const float* bp,
   }
   encode_pack_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      proj, bp, proj_t, codes_t, key_hi, key_lo, n, K, L, Nr, hi_bits,
+      proj, bp, proj_t, codes_t, key_hi, key_lo, n, ld, K, L, Nr, hi_bits,
       lo_bits);
   return static_cast<int>(cudaGetLastError());
 }

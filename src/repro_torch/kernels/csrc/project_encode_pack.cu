@@ -25,11 +25,17 @@
 //
 // Design: one block per tile of kRows = 32 rows, as encode_pack.  The
 // projection stage (project_tile.cuh, shared with lsh_project.cu) stages
-// the tile's rows of x in shared memory and has each thread accumulate one
-// projected dim for 8 rows in registers, reading the dim's column of a
-// through the read-only path; the sums land in the (kRows, L*K + 1) tile
-// that encode_pack_tile.cuh encodes and packs.  A block holds 27 KB of
-// shared memory and 32 registers a thread, so 8 blocks share an SM and one
+// the tile's rows of x in shared memory, kChunk = 256 columns at a time,
+// and has each thread accumulate one projected dim for 8 rows in
+// registers, reading the dim's column of a through the read-only path; the
+// sums land in the (kRows, L*K + 1) tile that encode_pack_tile.cuh encodes
+// and packs.  Past the first chunk an item reloads its 8 sums from that
+// tile and adds the next columns in j order, so the bits are those of one
+// pass and shared memory stops growing with d (any d runs).  Past what one
+// block's tile holds in L*K, the wrapper launches once per group of trees,
+// reading a's columns of the group through its row stride lda.  At d = 128
+// and L*K = 64 a block holds 27 KB of shared memory and 32 registers a
+// thread (one pass, no chunk loop), so 8 blocks share an SM and one
 // block's projection overlaps another's encode.  Staging all of a in shared
 // memory instead (60 KB a block, a persistent grid, 3 blocks an SM) took
 // 2.81-2.93 ms at n = 1M against this design's 1.77-1.79 ms, in one run on
@@ -51,41 +57,57 @@ using project_tile::padded;
 
 static_assert(project_tile::kRows == kRows, "one tile height for both");
 constexpr size_t kMaxSmem = 232448;              // 227 KB a block on an H100
+constexpr int kChunk = 256;                      // x columns staged at once
 
-size_t smem_bytes(int d, int D) {
-  return sizeof(float) * static_cast<size_t>(kRows) * padded(d)
+size_t smem_bytes(int chunk, int D) {
+  return sizeof(float) * static_cast<size_t>(kRows) * padded(chunk)
          + encode_pack_tile::tile_bytes(D);
 }
 
+// kChunked false: d <= kChunk, one pass over whole rows; true: the chunk
+// loop, whose carried sums cost registers (44 against 32 a thread at
+// d = 128, 5 blocks an SM against 8: 15 % slower in one H100 run of
+// chip_smoke.py's project_encode_pack check).
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads) project_encode_pack_kernel(
     const float* __restrict__ x, const float* __restrict__ a,
     const float* __restrict__ bp, float* __restrict__ proj_t,
     int32_t* __restrict__ codes_t, int64_t* __restrict__ key_hi,
-    int64_t* __restrict__ key_lo, int64_t n, int d, int K, int L, int Nr,
-    int hi_bits, int lo_bits) {
+    int64_t* __restrict__ key_lo, int64_t n, int d, int lda, int chunk,
+    int K, int L, int Nr, int hi_bits, int lo_bits) {
   extern __shared__ __align__(16) float smem[];
   const int D = L * K;
   const int DP = D + 1;
-  float* xin_s = smem;                           // (kRows, padded(d)) x
-  float* x_s = xin_s + kRows * padded(d);        // (kRows, D + 1) projections
+  float* xin_s = smem;                           // (kRows, padded(chunk)) x
+  float* x_s = xin_s + kRows * padded(chunk);    // (kRows, D + 1) projections
   uint8_t* codes_s = reinterpret_cast<uint8_t*>(x_s + kRows * DP);
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
   const int rows = static_cast<int>(min(static_cast<int64_t>(kRows),
                                         n - row0));
 
-  project_tile::stage_rows(x, d, row0, rows, 0, d, xin_s);
-  __syncthreads();
-  for (int w = threadIdx.x; w < kRowGroups * D; w += blockDim.x) {
-    const int c = w % D;
-    const int rq = w / D;
-    float acc[kRowsPerItem];
+  int j0 = 0;
+  do {                                           // once at least: d = 0 sums 0
+    const int w = min(chunk, d - j0);
+    if (kChunked && j0 > 0) __syncthreads();     // the last chunk is read
+    project_tile::stage_rows(x, d, row0, rows, j0, w, xin_s);
+    __syncthreads();
+    // An item (rq, c) belongs to the same thread in every chunk.
+    for (int it = threadIdx.x; it < kRowGroups * D; it += blockDim.x) {
+      const int c = it % D;
+      const int rq = it / D;
+      float acc[kRowsPerItem];
 #pragma unroll
-    for (int i = 0; i < kRowsPerItem; ++i) acc[i] = 0.f;
-    project_tile::accumulate(xin_s, d, a + c, D, rq, acc);
+      for (int i = 0; i < kRowsPerItem; ++i)
+        acc[i] = kChunked && j0 > 0 ? x_s[(rq + kRowGroups * i) * DP + c]
+                                    : 0.f;
+      const float* ac = a + static_cast<int64_t>(j0) * lda + c;
+      project_tile::accumulate(xin_s, w, ac, lda, rq, acc);
 #pragma unroll
-    for (int i = 0; i < kRowsPerItem; ++i)
-      x_s[(rq + kRowGroups * i) * DP + c] = acc[i];
-  }
+      for (int i = 0; i < kRowsPerItem; ++i)
+        x_s[(rq + kRowGroups * i) * DP + c] = acc[i];
+    }
+    j0 += chunk;
+  } while (kChunked && j0 < d);
   __syncthreads();
 
   encode_pack_tile::encode_and_pack(x_s, codes_s, rows, row0, n, bp, proj_t,
@@ -93,27 +115,46 @@ __global__ void __launch_bounds__(kThreads) project_encode_pack_kernel(
                                     hi_bits, lo_bits);
 }
 
+template <bool kChunked>
+cudaError_t launch(const float* x, const float* a, const float* bp,
+                   float* proj_t, int32_t* codes_t, int64_t* key_hi,
+                   int64_t* key_lo, int64_t n, int d, int lda, int chunk,
+                   int K, int L, int Nr, int hi_bits, int lo_bits,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(chunk, L * K);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        project_encode_pack_kernel<kChunked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t blocks = (n + kRows - 1) / kRows;
+  project_encode_pack_kernel<kChunked><<<static_cast<unsigned>(blocks),
+                                         kThreads, smem, stream>>>(
+      x, a, bp, proj_t, codes_t, key_hi, key_lo, n, d, lda, chunk, K, L, Nr,
+      hi_bits, lo_bits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// x (n, d), a (d, *) read through its row stride lda (its first L*K
+// columns), bp (L*K, Nr+1); outputs in the per-tree layouts of L trees.
 extern "C" int project_encode_pack_launch(
     const float* x, const float* a, const float* bp, float* proj_t,
     int32_t* codes_t, int64_t* key_hi, int64_t* key_lo, int64_t n, int d,
-    int K, int L, int Nr, int hi_bits, int lo_bits, void* stream) {
+    int lda, int K, int L, int Nr, int hi_bits, int lo_bits,
+    void* stream) {
   if (n == 0) return 0;
-  const size_t smem = smem_bytes(d, L * K);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        project_encode_pack_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t blocks = (n + kRows - 1) / kRows;
-  project_encode_pack_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, a, bp, proj_t, codes_t, key_hi, key_lo, n, d, K, L, Nr, hi_bits,
-      lo_bits);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      d <= kChunk
+          ? launch<false>(x, a, bp, proj_t, codes_t, key_hi, key_lo, n, d,
+                          lda, d, K, L, Nr, hi_bits, lo_bits, s)
+          : launch<true>(x, a, bp, proj_t, codes_t, key_hi, key_lo, n, d, lda,
+                         kChunk, K, L, Nr, hi_bits, lo_bits, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* project_encode_pack_error_string(int code) {

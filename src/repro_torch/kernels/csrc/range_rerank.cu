@@ -44,9 +44,17 @@
 //      drift would move the T2 test best <= c*r and with it the round
 //      count).  Points are staged through shared memory in chunks of kDC
 //      features, feature-major (coalesced 128-byte row loads, 8 in flight
-//      per thread); queries sit feature-major in shared memory for the whole
-//      block.  Each thread owns a 4-point x 8-query register tile, so one
-//      feature costs it 3 float4 shared loads for 32 FMAs.
+//      per thread); queries sit feature-major in shared memory, whole up
+//      to d = kQC = 128, and past it kQC features at a time (a kWide
+//      instance: staging queries per chunk at every d ran up to 13 %
+//      slower at d = 128 on an H100, timed in turns by
+//      scripts/ab_kernels.py), so
+//      shared memory (57 KB) does not grow with d and any d runs.  Each
+//      thread owns a 4-point x 8-query register tile and keeps it, and its
+//      |p|^2 sums, from chunk to chunk; warp 0 carries |q|^2 the same way.
+//      Every sum runs in feature order with the same fmaf as one pass over
+//      whole rows, so the bits do not depend on the chunk sizes.  One
+//      feature costs a thread 3 float4 shared loads for 32 FMAs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,16 +73,20 @@ static_assert(kThreads == (kP / kTP) * kQG, "one register tile per thread");
 
 __host__ __device__ inline int padded_dim(int d) { return (d + kDC - 1) / kDC * kDC; }
 
+constexpr int kQC = 128;   // query features staged at once, at most
+static_assert(kQC % kDC == 0, "a query chunk holds whole point chunks");
+
 size_t smem_bytes(int d) {
-  return sizeof(float) * (static_cast<size_t>(padded_dim(d)) * kQ + kQ +
-                          static_cast<size_t>(kDC) * kPS) +
+  const size_t qc = padded_dim(d) < kQC ? padded_dim(d) : kQC;
+  return sizeof(float) * (qc * kQ + kQ + static_cast<size_t>(kDC) * kPS) +
          static_cast<size_t>(kP + 1) * kQ;
 }
 
 // kHeads: every array has a leading head axis, and the block index a
 // leading head digit.  The single-forest instance compiles without the
-// head digit and the head offsets.
-template <bool kHeads>
+// head digit and the head offsets.  kWide: d > kQC, queries staged kQC
+// features at a time.
+template <bool kHeads, bool kWide>
 __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
     const float* __restrict__ q,            // (B, d)
     const float* __restrict__ q_proj,       // (L, B, K)
@@ -91,8 +103,9 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
     int n_qtiles, int64_t n_ptiles) {
   extern __shared__ float smem[];
   const int dp = padded_dim(d);
-  float* q_s = smem;                        // (dp, kQ), zero past d / B
-  float* qq_s = q_s + dp * kQ;              // (kQ,)
+  const int qc = kWide ? kQC : dp;          // query features staged
+  float* q_s = smem;                        // (qc, kQ), zero past d / B
+  float* qq_s = q_s + qc * kQ;              // (kQ,)
   float* p_s = qq_s + kQ;                   // (kDC, kPS), feature-major
   uint8_t* admit_s = reinterpret_cast<uint8_t*>(p_s + kDC * kPS);
 
@@ -173,17 +186,19 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
     return;
   }
 
-  // 3. Exact distances for the admitted tile, full fp32.
-  for (int e = t; e < dp * kQ; e += kThreads) {   // queries, feature-major
+  // 3. Exact distances for the admitted tile, full fp32.  Queries:
+  // features [c0, c0 + qc), feature-major; |q_t|^2 carried on in order.
+  float qq = 0.f;                           // threads t < kQ
+  for (int e = t; e < qc * kQ; e += kThreads) {
     const int c = e / kQ;
     const int j = e - c * kQ;
     q_s[e] = (j < nq && c < d) ? q[static_cast<int64_t>(q0 + j) * d + c] : 0.f;
   }
   __syncthreads();
   if (t < kQ) {
-    float s = 0.f;
-    for (int c = 0; c < d; ++c) s = fmaf(q_s[c * kQ + t], q_s[c * kQ + t], s);
-    qq_s[t] = s;
+    for (int c = 0; c < min(qc, d); ++c)
+      qq = fmaf(q_s[c * kQ + t], q_s[c * kQ + t], qq);
+    qq_s[t] = qq;
   }
   float acc[kTP][kTQ];
   float pp[kTP];
@@ -200,6 +215,24 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
     const bool col_ok = lane < min(kDC, d - k0);
     const float* src = points + (static_cast<int64_t>(l) * npts + p0 + w) * d
                        + k0 + lane;
+    if constexpr (kWide) {
+      if (k0 > 0 && k0 % kQC == 0) {        // the next query chunk
+        __syncthreads();                    // q_s is free to overwrite
+        for (int e = t; e < kQC * kQ; e += kThreads) {
+          const int c = e / kQ;
+          const int j = e - c * kQ;
+          q_s[e] = (j < nq && k0 + c < d)
+                       ? q[static_cast<int64_t>(q0 + j) * d + k0 + c] : 0.f;
+        }
+        __syncthreads();
+        if (t < kQ) {                       // read after the next barrier
+          for (int c = 0; c < min(kQC, d - k0); ++c)
+            qq = fmaf(q_s[c * kQ + t], q_s[c * kQ + t], qq);
+          qq_s[t] = qq;
+        }
+      }
+    }
+    const float* qk = q_s + (kWide ? k0 % kQC : k0) * kQ;
     __syncthreads();                        // p_s is free to overwrite
 #pragma unroll 1
     for (int i0 = 0; i0 < kP / 8; i0 += 8) {   // 8 row loads in flight
@@ -217,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
 #pragma unroll 2
     for (int c = 0; c < kDC; ++c) {
       const float4 pv = *reinterpret_cast<const float4*>(p_s + c * kPS + tp * kTP);
-      const float4 qa = *reinterpret_cast<const float4*>(q_s + (k0 + c) * kQ + tq * kTQ);
-      const float4 qb = *reinterpret_cast<const float4*>(q_s + (k0 + c) * kQ + tq * kTQ + 4);
+      const float4 qa = *reinterpret_cast<const float4*>(qk + c * kQ + tq * kTQ);
+      const float4 qb = *reinterpret_cast<const float4*>(qk + c * kQ + tq * kTQ + 4);
       const float pr[kTP] = {pv.x, pv.y, pv.z, pv.w};
       const float qr[kTQ] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
@@ -247,14 +280,14 @@ __global__ void __launch_bounds__(kThreads) range_rerank_kernel(
   }
 }
 
-template <bool kHeads>
-int launch(const float* q, const float* q_proj, const float* r_eff,
-           const int32_t* leaf_lo, const int32_t* leaf_hi,
-           const uint8_t* leaf_valid, const float* bp, const float* points,
-           const uint8_t* point_valid, const uint8_t* live, float* out, int H,
-           int L, int B, int d, int nl, int K, int E, int ls, void* stream) {
+template <bool kHeads, bool kWide>
+int launch_w(const float* q, const float* q_proj, const float* r_eff,
+             const int32_t* leaf_lo, const int32_t* leaf_hi,
+             const uint8_t* leaf_valid, const float* bp, const float* points,
+             const uint8_t* point_valid, const uint8_t* live, float* out,
+             int H, int L, int B, int d, int nl, int K, int E, int ls,
+             void* stream) {
   const int64_t npts = static_cast<int64_t>(nl) * ls;
-  if (H == 0 || L == 0 || B == 0 || npts == 0) return 0;
   const int n_qtiles = (B + kQ - 1) / kQ;
   const int64_t n_ptiles = (npts + kP - 1) / kP;
   const int64_t blocks = static_cast<int64_t>(H) * L * n_qtiles * n_ptiles;
@@ -262,16 +295,34 @@ int launch(const float* q, const float* q_proj, const float* r_eff,
   const size_t smem = smem_bytes(d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        range_rerank_kernel<kHeads>,
+        range_rerank_kernel<kHeads, kWide>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  range_rerank_kernel<kHeads><<<static_cast<unsigned>(blocks), kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  range_rerank_kernel<kHeads, kWide><<<static_cast<unsigned>(blocks),
+                                       kThreads, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
       q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, bp, points, point_valid,
       live, out, L, B, d, nl, K, E, ls, n_qtiles, n_ptiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kHeads>
+int launch(const float* q, const float* q_proj, const float* r_eff,
+           const int32_t* leaf_lo, const int32_t* leaf_hi,
+           const uint8_t* leaf_valid, const float* bp, const float* points,
+           const uint8_t* point_valid, const uint8_t* live, float* out, int H,
+           int L, int B, int d, int nl, int K, int E, int ls, void* stream) {
+  if (H == 0 || L == 0 || B == 0 || static_cast<int64_t>(nl) * ls == 0)
+    return 0;
+  return d > kQC
+      ? launch_w<kHeads, true>(q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid,
+                               bp, points, point_valid, live, out, H, L, B, d,
+                               nl, K, E, ls, stream)
+      : launch_w<kHeads, false>(q, q_proj, r_eff, leaf_lo, leaf_hi,
+                                leaf_valid, bp, points, point_valid, live, out,
+                                H, L, B, d, nl, K, E, ls, stream);
 }
 
 }  // namespace

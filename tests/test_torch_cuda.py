@@ -29,8 +29,11 @@ def cuda():
 
 
 @pytest.mark.parametrize("n,K,L,Nr", [(3001, 16, 4, 256), (3001, 4, 16, 256),
-                                      (777, 5, 3, 64), (40, 33, 1, 256)])
+                                      (777, 5, 3, 64), (40, 33, 1, 256),
+                                      (3001, 16, 128, 256)])
 def test_encode_pack_kernel_bit_identical(cuda, n, K, L, Nr):
+    """L*K = 2,048 is past one block's tile (1,451 dims): the wrapper
+    launches once per group of trees and counts one launch."""
     rng = np.random.default_rng(K)
     proj = torch.tensor(rng.standard_normal((n, L * K)) * 2.0,
                         dtype=torch.float32, device=cuda)
@@ -60,8 +63,11 @@ def _forest_inputs(cuda, n, B, K, L, ls, d, seed):
 
 @pytest.mark.parametrize("probe_depth", [0, 2])
 @pytest.mark.parametrize("n,B,ls,d", [(1500, 13, 16, 40), (3000, 33, 64, 128),
-                                      (700, 5, 50, 7)])
+                                      (700, 5, 50, 7), (3000, 40, 64, 1536),
+                                      (2000, 33, 32, 2048)])
 def test_range_rerank_kernel_matches_plain(cuda, probe_depth, n, B, ls, d):
+    """d = 1,536 and 2,048 are past the old whole-row query tile (d <=
+    1,472): queries are staged per feature chunk now."""
     f, plan, q, q_proj, rng = _forest_inputs(cuda, n, B, 4, 3, ls, d, seed=n)
     r = torch.tensor(rng.uniform(0.5, 3.0, B), dtype=torch.float32,
                      device=cuda)
@@ -222,11 +228,15 @@ def test_vmap_wrappers_refuse_bad_inputs(cuda):
                                         (777, 17, 5, 3, 64),
                                         (40, 33, 33, 1, 256),
                                         (5, 3, 2, 2, 16),
-                                        (1000, 960, 8, 2, 128)])
+                                        (1000, 960, 8, 2, 128),
+                                        (4096, 2048, 16, 4, 256),
+                                        (300, 300, 16, 100, 64)])
 def test_project_encode_pack_kernel_bit_identical(cuda, n, d, K, L, Nr):
-    """Ragged row counts, d off the float4 width and a wide d (GIST's 960):
-    every output equal to the plain version bit for bit (the projection is
-    summed in the same d order, each step rounded alike)."""
+    """Ragged row counts, d off the float4 width, a wide d (GIST's 960)
+    and d = 2,048 (eight 256-column chunks of x), and L*K = 1,600 (two
+    launches, one per group of trees): every output equal to the plain
+    version bit for bit (the projection is summed in the same d order,
+    each step rounded alike)."""
     gen = torch.Generator(cuda).manual_seed(n + d)
     x = torch.randn((n, d), generator=gen, device=cuda)
     a = torch.randn((d, L * K), generator=gen, device=cuda)
@@ -242,12 +252,10 @@ def test_project_encode_pack_kernel_bit_identical(cuda, n, d, K, L, Nr):
     assert all(torch.equal(g, w) for g, w in zip(interp, want))
 
 
-def test_project_encode_pack_refuses_rows_too_wide(cuda):
+def test_project_encode_pack_refuses_bad_inputs(cuda):
     x = torch.zeros((64, 2048), device=cuda)
     a = torch.zeros((2048, 64), device=cuda)
     bp = torch.sort(torch.randn((64, 257), device=cuda), dim=1).values
-    with pytest.raises(ValueError, match="shared memory"):
-        build_fused.project_encode_pack(x, a, bp, K=16, L=4)
     with pytest.raises(TypeError):
         build_fused.project_encode_pack(x.double(), a, bp, K=16, L=4)
     with pytest.raises(ValueError):
@@ -496,13 +504,23 @@ def test_pdet_across_cards_bit_identical_to_fused(cuda):
                                           (2, 1, 100, 260, 32),
                                           (1, 1, 128, 384, 128),
                                           (2, 3, 77, 77, 40),
-                                          (4, 16, 1, 1000, 128)])
+                                          (4, 16, 1, 1000, 128),
+                                          (1, 2, 130, 200, 192),
+                                          (2, 2, 64, 300, 256),
+                                          (4, 16, 3, 1000, 128),
+                                          (1, 4, 1, 65536, 128),
+                                          (1, 2, 20, 50, 300),
+                                          (2, 2, 5, 70, 3),
+                                          (1, 1, 2, 70, 4100)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, sq, sk, dh, causal,
                                               dtype):
-    """The reference's sweep plus ragged and decode-shaped (sq = 1) cases;
-    causal is top-left aligned, so it runs at any sq and sk.  Tolerances of
+    """The reference's sweep plus ragged, wide (dh = 192, 256, 300, and
+    4,100 past the split path's shared memory) and decode-shaped (sq = 1,
+    2, 3, 5) cases; causal is top-left aligned, so it
+    runs at any sq and sk.  Each call takes the path ``fak.path`` names
+    (split-key decode, bf16 tensor cores, CUDA cores).  Tolerances of
     tests/test_kernels.py (f32 2e-3, bf16 5e-2) against the naive softmax,
     and against the plain blockwise version the bound both sides' single
     f32 accumulation allows (ref.flash_attention_tolerance: summation
@@ -514,9 +532,15 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, sq, sk, dh, causal,
     k = (torch.randn((b, h, sk, dh), generator=gen, device=cuda)
          * 0.5).to(dtype)
     v = torch.randn((b, h, sk, dh), generator=gen, device=cuda).to(dtype)
+    which = fak.path(sq, dh, dtype)
     before = fak.flash_attention.launches
+    on_path = fak.flash_attention.paths[which]
     got = ops.flash_attention(q, k, v, causal=causal)
     assert fak.flash_attention.launches == before + 1
+    assert fak.flash_attention.paths[which] == on_path + 1
+    assert which == ("split" if sq <= 8 and dh <= 4096 else
+                     "mma" if dtype == torch.bfloat16 and dh <= 256 else
+                     "simt")
     torch.cuda.synchronize()
     want = ref.flash_attention(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
@@ -539,17 +563,19 @@ def test_flash_attention_kernel_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fak.flash_attention(x, x[:, :, :8].contiguous(), x, causal=False,
                             scale=1.0)
-    wide = torch.zeros((1, 4, 129), device=cuda)
-    with pytest.raises(ValueError, match="dh"):
-        fak.flash_attention(wide, wide, wide, causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fak.flash_attention(x.transpose(1, 2), x.transpose(1, 2),
+                            x.transpose(1, 2), causal=False, scale=1.0)
 
 
-def test_range_rerank_heads_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("d", [129, 1537])
+def test_range_rerank_heads_kernel_matches_plain(cuda, d):
     """H = 5 forests of the decode shape (d = 129, g = 2 lanes a head, a
-    done lane, tombstones): the +inf mask of the plain version, finite
-    entries within the range_rerank test's tolerance, and every head equal
-    bit for bit to a single-forest launch on that head's arrays."""
-    H, g, L, K, ls, d, n = 5, 2, 4, 4, 32, 129, 3000
+    done lane, tombstones) and of a width past the old whole-row query
+    tile (d = 1,537): the +inf mask of the plain version, finite entries
+    within the range_rerank test's tolerance, and every head equal bit for
+    bit to a single-forest launch on that head's arrays."""
+    H, g, L, K, ls, n = 5, 2, 4, 4, 32, 3000
     parts = [_forest_inputs(cuda, n, g, K, L, ls, d, seed=50 + h)
              for h in range(H)]
     f = [p[0] for p in parts]

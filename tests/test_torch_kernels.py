@@ -97,12 +97,16 @@ RTOL = ATOL = 1e-5
 
 
 @pytest.mark.parametrize("probe_depth", [0, 2])
-@pytest.mark.parametrize("B,n,ls,per_tree,use_live",
-                         [(5, 700, 16, False, True), (11, 523, 8, True, False),
-                          (8, 1000, 32, False, False)])
-def test_range_rerank_matches_reference(B, n, ls, per_tree, use_live,
+@pytest.mark.parametrize("B,n,ls,per_tree,use_live,d",
+                         [(5, 700, 16, False, True, 8),
+                          (11, 523, 8, True, False, 8),
+                          (8, 1000, 32, False, False, 8),
+                          (4, 300, 16, False, True, 1536)])
+def test_range_rerank_matches_reference(B, n, ls, per_tree, use_live, d,
                                         probe_depth):
-    K, L, d = 4, 3, 8
+    """d = 1,536 is past what the CUDA kernel once held in shared memory
+    (d <= 1,472); the plain version has no width limit either."""
+    K, L = 4, 3
     a, rng = _rerank_inputs(B, n, K, L, ls, d, seed=n)
     # Radii around the leaf-LB scale, a done lane (-1), per tree or shared.
     shape = (L, B) if per_tree else (B,)
@@ -161,6 +165,51 @@ def test_ops_refuse_a_device_without_a_kernel():
     x = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         tops.encode_pack(x, torch.zeros((8, 5), device="meta"), K=4, L=2)
+
+
+@pytest.mark.parametrize("sq,dh,dtype,want", [
+    (1, 128, torch.float32, "split"), (8, 1000, torch.bfloat16, "split"),
+    (9, 128, torch.bfloat16, "mma"), (32768, 256, torch.bfloat16, "mma"),
+    (9, 257, torch.bfloat16, "simt"), (32768, 128, torch.float32, "simt"),
+    (1, 5000, torch.float32, "simt")])
+def test_flash_attention_path_rule(sq, dh, dtype, want):
+    """The CUDA wrapper's launch path from the shape (no card needed): the
+    split-key decode up to 8 query rows (dh <= 4,096, for its shared
+    memory), the tensor cores for bf16 up to dh = 256, the CUDA cores
+    otherwise, at any dh."""
+    from repro_torch.kernels import flash_attention as fak
+    assert fak.path(sq, dh, dtype) == want
+
+
+@pytest.mark.parametrize("bh,sq,sk,causal,want", [
+    (64, 1, 32768, False, (16, 2048)),      # decode_path's dense step
+    (4, 1, 65536, False, (128, 512)),       # few heads: more splits
+    (64, 3, 1000, False, (2, 500)),
+    (64, 3, 1000, True, (1, 3)),            # causal rows see keys < sq
+    (2, 1, 0, False, (1, 1))])
+def test_flash_attention_split_rule(bh, sq, sk, causal, want):
+    from repro_torch.kernels import flash_attention as fak
+    n, per = fak.splits(bh, sq, sk, causal)
+    assert (n, per) == want
+    k_end = min(sk, sq) if causal else sk
+    assert (n - 1) * per < max(k_end, 1) <= n * per    # every key, once
+
+
+@pytest.mark.parametrize("K,L,spare,want", [
+    (16, 4, 0, [(0, 4)]), (16, 128, 0, [(0, 90), (90, 128)]),
+    (4, 16, 4 * 32 * 128, [(0, 16)]),
+    (16, 128, 4 * 32 * 256, [(0, 77), (77, 128)])])
+def test_encode_kernels_tree_groups(K, L, spare, want):
+    """Trees per launch of encode_pack / project_encode_pack: each group's
+    (32, L_g*K + 1) f32 + u8 tile fits the 232,448 bytes a block has, beside
+    project_encode_pack's staged x chunk (``spare``)."""
+    from repro_torch.kernels import build_fused as bfk
+    groups = bfk._tree_groups(K, L, spare)
+    assert groups == want
+    for l0, l1 in groups:
+        assert 32 * ((l1 - l0) * K + 1) * 5 + spare <= 232448
+    with pytest.raises(ValueError):
+        bfk._tree_groups(2000, 1, 0)
 
 
 def test_kernel_build_dir_needs_a_source_checkout(tmp_path, monkeypatch):
@@ -255,7 +304,11 @@ def test_project_and_encode_take_the_four_impl_names():
 # the last place), which a wrong kernel cannot meet.
 _FLASH = [(1, 2, 128, 128, 64, False), (1, 2, 128, 128, 64, True),
           (2, 1, 100, 260, 32, False), (1, 1, 128, 384, 128, False),
-          (1, 1, 384, 384, 128, True)]
+          (1, 1, 384, 384, 128, True),
+          # head widths past 128 (the reference pads dh to 256) and a
+          # decode shape (sq = 1, the CUDA wrapper's split path)
+          (1, 2, 64, 96, 160, False), (1, 1, 64, 64, 256, True),
+          (2, 4, 1, 300, 128, False)]
 
 
 @pytest.mark.parametrize("b,h,sq,sk,dh,causal", _FLASH)
