@@ -9,6 +9,11 @@ Phases, each printed as one line; any failure exits non-zero:
   env        torch / CUDA versions, the card, TF32 switched off.
   build      every CUDA source under src/repro_torch/kernels/csrc compiled
              at once (one nvcc each, in parallel).
+  kernel_sass  the redesigned kernels' instruction mix from cuobjdump -sass:
+             HMMA (tensor-core) instructions in each of range_rerank's six
+             rerank instances (must be > 0) and its two admission
+             instances; FFMA, FMUL and FADD in lsh_project's four (f32
+             and bf16, 512- and 128-row blocks; FFMA must be > 0, HMMA 0).
   encode_pack  the kernel against its plain PyTorch version at n rows,
              K=16/L=4 and K=4/L=16 (where the low key word is zero): all
              four outputs bit-identical; CUDA-event times.
@@ -41,9 +46,13 @@ Phases, each printed as one line; any failure exits non-zero:
              'pallas_interpret' as above; some lane must run >= 2 rounds.
              vmap_breakdown: CUDA-event ms of each step of one round.
   range_rerank  the kernel against its plain version at the main path's
-             last radius round, probe_depth 0 and 2: identical +inf mask,
-             finite entries within rtol 1e-4 / atol 1e-4 * max|x|^2 (the
-             qq - 2q.p + pp form cancels near zero, so summation order shows).
+             last radius round, probe_depth 0 and 2, and at the last round
+             of the scaled-r_min search (each lane's final radius):
+             identical +inf mask, finite entries within rtol 1e-4 / atol
+             1e-4 * max|x|^2 (the qq - 2q.p + pp form cancels near zero,
+             and the kernel's q.p is 3xTF32 on the tensor cores); the
+             admitted (query, leaf) pair share beside the share of warp
+             tiles (16 queries x 64 points) that hold one and so compute.
   search_breakdown  CUDA-event ms of each step of that round (kernel,
              inv_perm fold, T1/T2 update) and of the final top-k.
   persist    save -> load(device='cuda') -> search gives bit-identical ids
@@ -69,10 +78,11 @@ Phases, each printed as one line; any failure exits non-zero:
              then save -> load(device='cuda'): the same state_digest and
              bit-identical searches.  Seal, upsert, delete, compaction and
              warm search times, recall@50 and the c^2 rate.
-  lsh_project  the projection kernel against its plain version (d-order
-             sums) on the main path's rows and A (1M x 128 -> 64) and at
-             GIST's width (100,000 x 960 -> 64): bit-identical; CUDA-event
-             times, and torch.matmul (TF32 off) as a yardstick.
+  lsh_project  the projection kernel against its plain version (one FMA a
+             feature in d order) on the main path's rows and A (1M x 128
+             -> 64) and at GIST's width (100,000 x 960 -> 64):
+             bit-identical; CUDA-event times, and torch.matmul (TF32 off)
+             as a yardstick.
   encode_bins  the encode kernel against its plain version (searchsorted)
              on the main path's projections with its index's breakpoints
              (1M x 64, Nr = 256): bit-identical; torch.searchsorted on the
@@ -543,8 +553,27 @@ def vmap_path(torch, index, queries) -> tuple:
     return res, req, launches
 
 
+def tile_share(torch, admit, ls: int) -> float:
+    """The share of range_rerank's warp tiles (16 queries x one 64-point
+    column) that hold an admitted (query, leaf) pair and so run mmas, of
+    those that exist; admit (L, B, nl) bool.  Columns start at multiples
+    of 64 points (a block's tile is a whole number of columns), and a
+    column's pairs are those of every leaf it overlaps."""
+    L, B, nl = admit.shape
+    npts = nl * ls
+    cols = torch.arange(0, npts, 64, device=admit.device)
+    lo = cols // ls
+    hi = (torch.clamp(cols + 64, max=npts) - 1) // ls
+    csum = torch.nn.functional.pad(admit.to(torch.int32).cumsum(-1), (1, 0))
+    col_any = (csum[..., hi + 1] - csum[..., lo]) > 0          # (L, B, nc)
+    pad = (-B) % 16
+    col_any = torch.nn.functional.pad(col_any, (0, 0, 0, pad))
+    tiles = col_any.reshape(L, (B + pad) // 16, 16, -1).any(2)
+    return float(tiles.float().mean())
+
+
 def check_range_rerank(torch, index, queries, final_r, probe_depth: int,
-                       timed: bool) -> dict:
+                       timed: bool, tag: str = "last round") -> dict:
     from repro_torch.kernels import range_rerank as rr
     from repro_torch.kernels import ref
     f, plan, p = index.forest, index.fused_plan(), index.params
@@ -584,10 +613,13 @@ def check_range_rerank(torch, index, queries, final_r, probe_depth: int,
               + 2 * L * npts + 4 * L * B * npts)
     flops = 6 * L * B * nl * K + 2 * d * ls * pairs
     bms, by = bound_ms(nbytes, flops)
-    out = dict(probe_depth=probe_depth, mask_identical=True,
+    out = dict(radius=tag, probe_depth=probe_depth, mask_identical=True,
                max_abs_err=max_err, finite=int(fin.sum()),
-               admitted_pairs=pairs, leaves_read=leaves_read,
-               bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+               admitted_pairs=pairs,
+               admitted_pair_share=pairs / float(admit.numel()),
+               computed_tile_share=tile_share(torch, admit, f.leaf_size),
+               leaves_read=leaves_read, bound_ms=bms, bound_by=by,
+               bytes=nbytes, flops=flops)
     del got, want, fin, err, tol
     if timed:
         out["ms"] = time_ms(torch, lambda: rr.range_rerank(
@@ -716,7 +748,7 @@ def main_path(torch, n: int, B: int) -> tuple:
          c2_guarantee_rate=rate, success_bound=SUCCESS_PROBABILITY,
          launches=launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return index, queries, res2, req, launches
+    return index, queries, res2, req, launches, res3
 
 
 def check_persist(torch, index, queries, searches) -> None:
@@ -1378,25 +1410,62 @@ def check_flash_attention(torch, b: int, h: int, sq: int, sk: int, dh: int,
     return out
 
 
-def mma_sass() -> dict:
-    """HMMA (tensor-core) instructions in the SASS of each kernel of the
-    built flash_attention library, by kernel, from cuobjdump -sass."""
+def sass_counts(library: str, kinds: dict, opcodes: tuple) -> dict:
+    """Instructions of each opcode in the SASS of a built library's kernels
+    (cuobjdump -sass), summed by kind: ``kinds`` maps a kind to a substring
+    of the mangled kernel names; a kernel matching none counts under its
+    own name.  Returns {kind: {opcode: count}}."""
     import re
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path(
-        "flash_attention"))], capture_output=True, text=True,
-        check=True).stdout
-    counts = {}
+        library))], capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        kind = next((k for k in ("flash_mma_kernel", "split_kernel",
-                                 "combine_kernel", "flash_simt_kernel")
-                     if k in name), name)
-        counts[kind] = counts.get(kind, 0) + len(re.findall(r"\bHMMA\b",
-                                                            part))
+        kind = next((k for k, sub in kinds.items() if sub in name), name)
+        into = counts.setdefault(kind, dict.fromkeys(opcodes, 0))
+        for op in opcodes:
+            into[op] += len(re.findall(rf"\b{op}\b", part))
     return counts
+
+
+def mma_sass() -> dict:
+    """HMMA (tensor-core) instructions in the SASS of each kernel of the
+    built flash_attention library, by kernel."""
+    counts = sass_counts("flash_attention", {
+        k: k for k in ("flash_mma_kernel", "split_kernel", "combine_kernel",
+                       "flash_simt_kernel")}, ("HMMA",))
+    return {k: v["HMMA"] for k, v in counts.items()}
+
+
+def kernel_sass() -> dict:
+    """The redesigned kernels' instruction mix: HMMA in every instance of
+    range_rerank's rerank kernel (heads x 64-point columns a block), which
+    must be > 0, and in its admission kernel (none); FFMA, FMUL and FADD
+    in lsh_project's kernels (f32 and bf16, 512- and 128-row blocks: one
+    FFMA a feature and output; FFMA must be > 0)."""
+    kinds = {f"{'heads' if h else 'single'}_cols{c}":
+             f"range_rerank_kernelILb{h}ELi{c}E"
+             for h in (0, 1) for c in (2, 4, 8)}
+    kinds.update({f"admit_{'heads' if h else 'single'}": f"admit_kernelILb{h}E"
+                  for h in (0, 1)})
+    rr = sass_counts("range_rerank", kinds, ("HMMA", "FFMA"))
+    rerank = [v for k, v in rr.items() if k.startswith(("single", "heads"))]
+    require(len(rr) == 8 and len(rerank) == 6
+            and all(v["HMMA"] > 0 for v in rerank),
+            f"range_rerank: a rerank instance without HMMA in its SASS: {rr}")
+    lp = sass_counts("lsh_project", {
+        f"{name}_rows{rows}": f"lsh_project_kernelI{t}Li{rows // 32}E"
+        for name, t in (("f32", "f"), ("bf16", "t")) for rows in (512, 128)},
+        ("FFMA", "FMUL", "FADD", "HMMA"))
+    require(len(lp) == 4 and all(v["FFMA"] > 0 and v["HMMA"] == 0
+                                 for v in lp.values()),
+            f"lsh_project: no FFMA (or a tensor-core op) in its SASS: {lp}")
+    out = {"range_rerank": rr, "lsh_project": lp}
+    line("kernel_sass", **out)
+    return out
 
 
 def _wide_forest(torch, n: int, d: int, K: int, L: int, ls: int, B: int,
@@ -1927,10 +1996,12 @@ def main() -> int:
     line("build", seconds=time.perf_counter() - t0,
          libraries=[str(_build.library_path(k).relative_to(ROOT))
                     for k in _build.KERNELS])
+    kernel_sass()
 
     enc = check_encode_pack(torch, n, K=16, L=4, Nr=256)
     enc4 = check_encode_pack(torch, n, K=4, L=16, Nr=256)
-    index, queries, res, req, launches = main_path(torch, n, B=100)
+    index, queries, res, req, launches, res_scaled = main_path(torch, n,
+                                                               B=100)
     lbd = check_leaf_bounds(torch, index, queries)
     l2 = check_l2_rerank(torch, index, queries, res.stats.r_min, M=8)
     vres, vreq, vlaunches = vmap_path(torch, index, queries)
@@ -1938,6 +2009,9 @@ def main() -> int:
                              timed=True)
     rr2 = check_range_rerank(torch, index, queries, res.stats.final_r, 2,
                              timed=False)
+    rr_scaled = check_range_rerank(torch, index, queries,
+                                   res_scaled.stats.final_r, 0, timed=True,
+                                   tag="scaled r_min, last round")
     search_breakdown(torch, index, queries, res.stats.final_r, req.k)
     check_persist(torch, index, queries, [(res, req), (vres, vreq)])
     pep = [check_project_encode_pack(torch, index.data, 16, 4, 256, "n=1M"),
@@ -1954,7 +2028,7 @@ def main() -> int:
     ebins = check_encode_bins(
         torch, torch.matmul(index.data, index.A),
         index.forest.breakpoints.reshape(64, 257))
-    del res, vres
+    del res, vres, res_scaled
     torch.cuda.empty_cache()
     pdet = pdet_path(torch, index.data, queries)
     del index, queries
@@ -1982,6 +2056,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/range_rerank.py:90",
          "launches": launches["range_rerank"],
          "max_abs_err": max(rr0["max_abs_err"], rr2["max_abs_err"],
+                            rr_scaled["max_abs_err"],
                             wide["range_rerank_d1536"]["max_abs_err"]),
          "ms": rr0["ms"], "plain_ms": rr0["plain_ms"],
          "bound_ms": rr0["bound_ms"], "bound_by": rr0["bound_by"],

@@ -1,9 +1,9 @@
 """Wrapper of the ``lsh_project`` CUDA kernel (``csrc/lsh_project.cu``).
 
 The hashing phase of the build: the p-stable projection x (n, d) @ A
-(d, L*K) in f32, summed over d in index order with separately rounded
-products and sums, so it equals its plain version
-(:func:`repro_torch.kernels.ref.lsh_project`) bit for bit.  It runs where a
+(d, L*K) in f32, one fused multiply-add a feature in index order, so it
+equals its plain version (:func:`repro_torch.kernels.ref.lsh_project`,
+which emulates the f32 FMA exactly) bit for bit.  It runs where a
 build asks for it (``IndexSpec(project_impl='pallas')``, or
 ``core.hashing.project(impl='pallas')``); ``kernels/ops.py`` picks between
 kernel and plain version by device.
@@ -12,6 +12,7 @@ kernel and plain version by device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,6 +21,7 @@ from repro_torch.kernels import _build
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lsh_project")
     fn = lib.lsh_project_launch

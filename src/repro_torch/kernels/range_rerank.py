@@ -16,20 +16,23 @@ KV-decode retrieval: one forest per (batch, kv-head)).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("range_rerank")
     lib.range_rerank_launch.restype = ctypes.c_int
-    lib.range_rerank_launch.argtypes = ([ctypes.c_void_p] * 11
+    lib.range_rerank_launch.argtypes = ([ctypes.c_void_p] * 12
                                         + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
     lib.range_rerank_heads_launch.restype = ctypes.c_int
-    lib.range_rerank_heads_launch.argtypes = ([ctypes.c_void_p] * 11
+    lib.range_rerank_heads_launch.argtypes = ([ctypes.c_void_p] * 12
                                               + [ctypes.c_int] * 8
                                               + [ctypes.c_void_p])
     return lib
@@ -83,12 +86,18 @@ def _prepare(name: str, tensors: tuple, lead: tuple, leaf_size: int
 
 def _launch(fn_name: str, args: tuple, out: torch.Tensor,
             sizes: tuple[int, ...]) -> None:
+    """Run the two launches (admission, then rerank) on out's device, with
+    the admission table, one byte a (head, tree, leaf, query), as
+    scratch."""
     lib = _lib()
     dev = out.device
+    n_admit = math.prod(out.shape[:-1]) * args[3].shape[-2]   # (.., nl, B)
+    admit = torch.empty((n_admit,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, fn_name)(*(a.data_ptr() for a in args),
-                                     out.data_ptr(), *sizes, stream)
+                                     out.data_ptr(), admit.data_ptr(),
+                                     *sizes, stream)
     _build.check(lib, "range_rerank", code)
 
 

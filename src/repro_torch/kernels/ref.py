@@ -43,11 +43,12 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
 
 def project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """x (n, d) @ a (d, D) in f32, summed over d in index order with one
-    rounded product and one rounded sum a step, as the CUDA ``lsh_project``
-    and ``project_encode_pack`` kernels do
-    (``__fadd_rn(acc, __fmul_rn(x, a))``).  One ulp of a projection can flip
-    a code at an edge, so the kernels and this version must agree bit for
-    bit, not within a tolerance."""
+    rounded product and one rounded sum a step, as the CUDA
+    ``project_encode_pack`` kernel does (``__fadd_rn(acc, __fmul_rn(x,
+    a))``).  One ulp of a projection can flip a code at an edge, so the
+    kernel and this version must agree bit for bit, not within a
+    tolerance.  (``lsh_project`` sums with one FMA a step instead: see
+    :func:`lsh_project`.)"""
     acc = torch.zeros((x.shape[0], a.shape[1]), dtype=torch.float32,
                       device=x.device)
     for j in range(x.shape[1]):                # fixed order, no contraction
@@ -55,11 +56,45 @@ def project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fma_f32(x: torch.Tensor, a: torch.Tensor, acc: torch.Tensor
+            ) -> torch.Tensor:
+    """The correctly rounded f32 fused multiply-add ``x * a + acc``
+    (CUDA's ``__fmaf_rn``), elementwise; x and a hold f32 (or narrower)
+    values in any float dtype, acc is f32.  Neither PyTorch nor numpy has
+    one, so it is emulated in float64: the product of two f32 values is
+    exact there (24 + 24 bits fit in 53), the sum is rounded to odd (TwoSum
+    gives its exact error; a sum that is inexact and even steps one ulp
+    towards the error), and rounding that to nearest f32 is the correctly
+    rounded FMA, because 53 >= 24 + 2 (Boldo and Melquiond, "Emulation of
+    FMA and correctly rounded sums: proved algorithms using rounding to
+    odd", IEEE Trans. Computers, 2008)."""
+    p = x.to(torch.float64) * a.to(torch.float64)
+    c = acc.to(torch.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    step = (err != 0) & even & torch.isfinite(s)
+    toward = torch.where(err > 0, _INF, -_INF).to(torch.float64)
+    s = torch.where(step, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def lsh_project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """The projection kernel's function: x (n, d) @ a (d, m) -> (n, m) f32
-    by :func:`project`.  bf16 inputs widen to f32 first, where their
-    products are exact."""
-    return project(x.to(torch.float32), a.to(torch.float32))
+    """The projection kernel's function: x (n, d) @ a (d, m) -> (n, m) f32,
+    one correctly rounded fused multiply-add a feature in index order
+    (``acc = fma(x[:, j], a[j], acc)`` for j = 0..d-1), as the CUDA
+    ``lsh_project`` kernel sums (``__fmaf_rn``), so the two agree bit for
+    bit.  bf16 inputs widen to f32 exactly; their products are exact in
+    f32, so for them this equals :func:`project` bit for bit.
+    :func:`project` itself (``project_encode_pack``'s sum) is unchanged."""
+    xd = x.to(torch.float64)
+    ad = a.to(torch.float64)
+    acc = torch.zeros((x.shape[0], a.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for j in range(x.shape[1]):                # fixed order
+        acc = fma_f32(xd[:, j, None], ad[j], acc)
+    return acc
 
 
 def encode_bins(coords: torch.Tensor, breakpoints: torch.Tensor

@@ -94,6 +94,80 @@ def test_range_rerank_kernel_matches_plain(cuda, probe_depth, n, B, ls, d):
     assert torch.isinf(got[:, 1]).all()
 
 
+def _held(got, want, points):
+    """range_rerank's check: the plain version's +inf mask, finite entries
+    within 1e-4 * |plain| + 1e-4 * max |x|^2 (the qq - 2 q.p + pp form
+    cancels near a query; the kernel's q.p is 3xTF32 on the tensor cores,
+    ~1e-6 of sum |q||p| from f32)."""
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    max_sq = float((points ** 2).sum(-1).max())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4,
+                               atol=1e-4 * max_sq)
+    return fin
+
+
+@pytest.mark.parametrize("B,d,ls", [(1, 3, 32), (17, 127, 64),
+                                    (100, 129, 32), (100, 1536, 64),
+                                    (200, 64, 64), (40, 128, 16)])
+def test_range_rerank_kernel_edges(cuda, B, d, ls):
+    """The tensor-core body at its edges: B = 1 (one lane of a 16-row
+    tile), 17 (a second, nearly empty tile), 40, 100 and 200 (two passes),
+    d not a multiple of 4 (4-byte copies) or of 8 (zero-padded k steps),
+    d = 1,536 (96 ring chunks), leaves of 16, 32 and 64 points, each lane's
+    radius at the 20 % point of its leaf bounds.  Two copies of the forest
+    through the heads entry equal the single-forest launch bit for bit."""
+    n = 3000
+    f, plan, q, q_proj, rng = _forest_inputs(cuda, n, B, 4, 3, ls, d,
+                                             seed=B + d)
+    lb = ref.forest_leaf_lb(q_proj, f.leaf_lo, f.leaf_hi, f.leaf_valid,
+                            f.breakpoints)
+    flat = lb.permute(1, 0, 2).reshape(B, -1)
+    r = flat.kthvalue(max(1, flat.shape[1] // 5), dim=1).values.contiguous()
+    if B > 1:
+        r[1] = -1.0                               # a done lane
+    live = torch.tensor(rng.random(f.valid.shape) > 0.1, device=cuda)
+    args = (q, q_proj, r.expand(3, B).contiguous(), f.leaf_lo, f.leaf_hi,
+            f.leaf_valid, f.breakpoints, plan.points_sorted, f.valid, live)
+    got = rr.range_rerank(*args, leaf_size=ls)
+    want = ref.range_rerank(*args, leaf_size=ls)
+    fin = _held(got, want, plan.points_sorted)
+    assert fin.any() and (~fin).any()
+    heads = rr.range_rerank_heads(*(torch.stack([a, a]) for a in args),
+                                  leaf_size=ls)
+    torch.cuda.synchronize()
+    assert torch.equal(heads[0], got) and torch.equal(heads[1], got)
+
+
+@pytest.mark.parametrize("case", ["one_pair", "none"])
+def test_range_rerank_kernel_one_pair_and_none(cuda, case):
+    """Per-tree radii that admit exactly one (query, leaf) pair of the
+    whole forest, and radii that admit none (every lane done): the one
+    leaf's valid points get distances, everything else +inf, as in the
+    plain version; with none admitted the output is +inf throughout."""
+    B, L, ls = 40, 3, 32
+    f, plan, q, q_proj, _ = _forest_inputs(cuda, 2000, B, 4, L, ls, 64,
+                                           seed=77)
+    r = torch.full((L, B), -1.0, device=cuda)
+    if case == "one_pair":
+        lb = ref.forest_leaf_lb(q_proj, f.leaf_lo, f.leaf_hi, f.leaf_valid,
+                                f.breakpoints)
+        two = lb.sort(dim=-1).values[..., :2]
+        l, b = map(int, torch.nonzero(two[..., 0] < two[..., 1])[0])
+        r[l, b] = two[l, b, 0]
+        admitted = (lb <= r[..., None]) & f.leaf_valid[:, None, :]
+        assert int(admitted.sum()) == 1
+    args = (q, q_proj, r, f.leaf_lo, f.leaf_hi, f.leaf_valid, f.breakpoints,
+            plan.points_sorted, f.valid, f.valid)
+    got = ops.range_rerank(*args, leaf_size=ls)
+    want = ref.range_rerank(*args, leaf_size=ls)
+    fin = _held(got, want, plan.points_sorted)
+    if case == "one_pair":
+        assert 0 < int(fin.sum()) <= ls
+    else:
+        assert torch.isinf(got).all()
+
+
 @pytest.mark.parametrize("build_impl,encode_impl,launched", [
     ("auto", "auto", True), ("pallas", "auto", True), ("auto", "pallas", True),
     ("auto", "pallas_interpret", False), ("pallas_interpret", "auto", False),
@@ -357,6 +431,26 @@ def test_lsh_project_kernel_bit_identical(cuda, n, d, m, dtype):
     assert lpk.lsh_project.launches == before + 1
 
 
+@pytest.mark.parametrize("n,d,m", [(1000, 17, 3), (1000, 960, 64),
+                                   (777, 17, 65), (300, 960, 65),
+                                   (513, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lsh_project_kernel_ragged_edges(cuda, n, d, m, dtype):
+    """Rows not a multiple of the block's 256, m = 3, 64 and 65 (a ragged
+    column tile, 4-byte stores), d = 17 (plain loads into the ring) and
+    960 (60 chunks): bit-identical to the plain FMA chain; bf16 outputs
+    also equal the mul-then-add form (ref.project), which the kernel had
+    before it summed with FMAs."""
+    from repro_torch.kernels import lsh_project as lpk
+    gen = torch.Generator(cuda).manual_seed(n * d + m)
+    x = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    a = torch.randn((d, m), generator=gen, device=cuda).to(dtype)
+    got = lpk.lsh_project(x, a)
+    assert torch.equal(got, ref.lsh_project(x, a))
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, ref.project(x.float(), a.float()))
+
+
 @pytest.mark.parametrize("n,D,Nr", [(512, 64, 256), (700, 16, 64),
                                     (64, 4, 16), (1024, 128, 256),
                                     (5000, 200, 256)])
@@ -414,7 +508,7 @@ def test_reference_builder_on_the_card_launches_both_kernels(cuda):
              ebk.encode_bins.launches - counts[1],
              build_fused.encode_pack.launches - counts[2])
     assert moved == (1, 1, 0)
-    proj = ref.project(torch.tensor(data, device=cuda), idx.A)
+    proj = ref.lsh_project(torch.tensor(data, device=cuda), idx.A)
     bp = idx.forest.breakpoints.reshape(24, 129)
     fused = detree.build_forest(proj, 8, 3, Nr=128, leaf_size=32,
                                 breakpoints=bp)

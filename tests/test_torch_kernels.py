@@ -7,6 +7,8 @@ themselves are held against the plain versions in tests/test_torch_cuda.py
 (and by ``chip_smoke.py``).
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 
@@ -251,6 +253,151 @@ def test_lsh_project_plain_matches_reference(n, d, m, dtype):
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol * 8)
 
 
+_F32_HALF_PAST_MAX = (Fraction(2 - Fraction(1, 2 ** 23)) * 2 ** 127
+                      + Fraction(2) ** 103)
+
+
+def _round_f32(v: Fraction, zero: float) -> np.float32:
+    """The exact value v rounded to the nearest f32, ties to even; an exact
+    zero gets the sign ``zero`` carries (IEEE round to nearest)."""
+    if v == 0:
+        return np.float32(zero)
+    if abs(v) >= _F32_HALF_PAST_MAX:
+        return np.float32(np.inf if v > 0 else -np.inf)
+    c = np.float32(float(v))       # at most one ulp off (double rounding)
+    cands = [x for x in (np.nextafter(c, np.float32(-np.inf)), c,
+                         np.nextafter(c, np.float32(np.inf)))
+             if np.isfinite(x)]
+    return min(cands, key=lambda x: (abs(Fraction(float(x)) - v),
+                                     int(np.float32(x).view(np.int32)) & 1))
+
+
+def _exact_fma(x: np.float32, a: np.float32, acc: np.float32) -> np.float32:
+    prod = Fraction(float(x)) * Fraction(float(a))
+    neg_zero = (prod == 0 and np.signbit(x) != np.signbit(a)
+                and acc == 0 and np.signbit(acc))
+    return _round_f32(prod + Fraction(float(acc)), -0.0 if neg_zero else 0.0)
+
+
+def _fma_triples(case: str, rng, n: int):
+    f32 = np.float32
+
+    def signed(v):
+        return (v * rng.choice([-1.0, 1.0], v.shape)).astype(f32)
+    if case == "random":
+        scale = lambda: 10.0 ** rng.uniform(-3, 3, n)      # noqa: E731
+        return (signed(rng.random(n) * scale()),
+                signed(rng.random(n) * scale()),
+                signed(rng.random(n) * scale()))
+    if case == "ties":             # x*a is an odd number of half ulps of acc
+        acc = signed(rng.uniform(1, 2, n) * 2.0 ** rng.integers(-20, 20, n))
+        ulp = np.spacing(np.abs(acc)).astype(np.float64)
+        x = (2 * rng.integers(0, 8, n) + 1).astype(f32)
+        return x, signed(ulp / 2), acc
+    if case == "cancellation":     # the sum is the product's rounding error
+        x = signed(rng.uniform(1, 2, n) * 2.0 ** rng.integers(-8, 8, n))
+        a = signed(rng.uniform(1, 2, n) * 2.0 ** rng.integers(-8, 8, n))
+        acc = -(x * a)
+        nudge = rng.random(n) < 0.3
+        acc[nudge] = np.nextafter(acc[nudge], np.float32(np.inf))
+        return x, a, acc
+    if case == "double_rounding":  # x*a within 2^-29 of half an ulp
+        acc = signed(2.0 ** rng.integers(-20, 20, n))
+        x = rng.uniform(1, 2, n).astype(f32)
+        a = signed(np.abs(acc).astype(np.float64) * 2.0 ** -24 / x)
+        return x, a, acc
+    if case == "subnormal":        # products and sums below 2^-126
+        x = signed(rng.uniform(1, 2, n) * 2.0 ** -70)
+        a = signed(rng.uniform(1, 2, n) * 2.0 ** rng.integers(-80, -60, n))
+        acc = signed(rng.integers(0, 2 ** 23, n) * 2.0 ** -149)
+        return x, a, acc
+    assert case == "large"         # near the top of the range, some overflow
+    x = signed(rng.uniform(1, 2, n) * 2.0 ** rng.integers(55, 64, n))
+    a = signed(rng.uniform(1, 2, n) * 2.0 ** rng.integers(55, 64, n))
+    acc = signed(rng.uniform(1, 2, n) * 2.0 ** rng.integers(100, 128, n))
+    return x, a, acc
+
+
+_FMA_CASES = ("random", "ties", "double_rounding", "cancellation",
+              "subnormal", "large")
+
+
+@pytest.mark.parametrize("case", _FMA_CASES)
+def test_fma_f32_matches_exact_rounding(case):
+    """The plain lsh_project's step, ref.fma_f32, is the correctly rounded
+    f32 FMA: equal bit for bit to the exact x*a + acc (fractions) rounded
+    to nearest f32, ties to even, on seeded triples of each kind.  In
+    "double_rounding" a plain float64 sum rounded to f32 is wrong for some
+    triples (counted below), so the round-to-odd step is needed."""
+    rng = np.random.default_rng(_FMA_CASES.index(case))
+    x, a, acc = _fma_triples(case, rng, 3000)
+    got = tref.fma_f32(torch.tensor(x), torch.tensor(a),
+                       torch.tensor(acc)).numpy()
+    want = np.array([_exact_fma(*t) for t in zip(x, a, acc)],
+                    dtype=np.float32)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if case == "double_rounding":
+        naive = (x.astype(np.float64) * a + acc).astype(np.float32)
+        assert (naive != want).sum() > 0
+
+
+def test_lsh_project_plain_is_the_fma_chain():
+    """ref.lsh_project sums each output as fma(x[i, j], a[j, c], acc) for
+    j = 0..d-1: equal bit for bit to that chain rounded exactly, step by
+    step."""
+    rng = np.random.default_rng(5)
+    n, d, m = 4, 23, 5
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    a = rng.standard_normal((d, m)).astype(np.float32)
+    got = tref.lsh_project(torch.tensor(x), torch.tensor(a)).numpy()
+    want = np.zeros((n, m), dtype=np.float32)
+    for i in range(n):
+        for c in range(m):
+            acc = np.float32(0.0)
+            for j in range(d):
+                acc = _exact_fma(x[i, j], a[j, c], acc)
+            want[i, c] = acc
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_lsh_project_plain_bf16_equals_mul_then_add():
+    """A product of two bf16 values is exact in f32, so for bf16 inputs the
+    FMA chain gives the bits of a rounded product and a rounded sum a step:
+    ref.lsh_project equals ref.project (and the kernel's bf16 outputs stay
+    those of its earlier mul-then-add form)."""
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.standard_normal((64, 40)) * 3).to(torch.bfloat16)
+    a = torch.tensor(rng.standard_normal((40, 24))).to(torch.bfloat16)
+    got = tref.lsh_project(x, a)
+    assert torch.equal(got.view(torch.int32), tref.project(
+        x.to(torch.float32), a.to(torch.float32)).view(torch.int32))
+
+
+def test_project_plain_is_mul_then_add():
+    """ref.project, project_encode_pack's plain sum, is unchanged: one
+    rounded f32 product and one rounded f32 sum a step, in d order (numpy
+    f32 arithmetic, which does not contract), and project_encode_pack's
+    plain version projects through it.  On f32 inputs it differs from the
+    FMA chain of ref.lsh_project."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((300, 24)).astype(np.float32)
+    a = rng.standard_normal((24, 16)).astype(np.float32)
+    want = np.zeros((300, 16), dtype=np.float32)
+    for j in range(24):
+        want = want + x[:, j, None] * a[j]
+    got = tref.project(torch.tensor(x), torch.tensor(a)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    bp = torch.sort(torch.tensor(rng.standard_normal((16, 33)),
+                                 dtype=torch.float32), dim=1).values
+    proj_t = tref.project_encode_pack(torch.tensor(x), torch.tensor(a), bp,
+                                      K=4, L=4)[0]
+    assert torch.equal(proj_t, torch.tensor(want).reshape(300, 4, 4)
+                       .permute(1, 0, 2))
+    fma = tref.lsh_project(torch.tensor(x), torch.tensor(a)).numpy()
+    assert (fma != want).any()
+
+
 @pytest.mark.parametrize("n,D,Nr", [(512, 64, 256), (700, 16, 64),
                                     (64, 4, 16), (1024, 128, 256)])
 def test_encode_bins_plain_matches_reference(n, D, Nr):
@@ -275,7 +422,7 @@ def test_project_and_encode_take_the_four_impl_names():
     x = torch.tensor(rng.standard_normal((300, 24)), dtype=torch.float32)
     a = torch.tensor(rng.standard_normal((24, 12)), dtype=torch.float32)
     before = (lpk.lsh_project.launches, ebk.encode_bins.launches)
-    in_order = tref.project(x, a)
+    in_order = tref.lsh_project(x, a)
     projs = {impl: hashing.project(x, a, impl=impl)
              for impl in ("auto", "xla", "pallas", "pallas_interpret")}
     for impl in ("pallas", "pallas_interpret"):

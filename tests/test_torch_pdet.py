@@ -318,7 +318,7 @@ def test_pallas_projection_index_answers_as_the_reference(dataset):
     K, L, Nr = 4, 3, 32
     A = torch.tensor(np.asarray(jidx.A))
     proj = hashing.project(torch.tensor(data), A, impl="pallas")
-    assert torch.equal(proj, tref.project(torch.tensor(data), A))
+    assert torch.equal(proj, tref.lsh_project(torch.tensor(data), A))
     want_proj = np.asarray(jnp.asarray(data) @ jidx.A)
     tol = 1e-6 * float(np.abs(want_proj).max())
     np.testing.assert_allclose(proj.numpy(), want_proj, rtol=0, atol=tol)

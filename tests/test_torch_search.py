@@ -198,7 +198,7 @@ def test_vmap_engine_raises_until_ported(request_kw):
 
 def test_unported_kernels_refused_at_build(tmp_path):
     """project_impl in the pallas names builds through lsh_project (its
-    plain version on the CPU): the forest holds the d-order projection of
+    plain version on the CPU): the forest holds the d-order FMA projection of
     the data rows.  A reference snapshot with such a spec loads too."""
     data, q = _dataset(seed=12, n=256, nq=2)
     x = torch.tensor(data)
@@ -210,7 +210,7 @@ def test_unported_kernels_refused_at_build(tmp_path):
         assert torch.equal(idx.A, base.A)
         f = idx.forest
         rows = torch.clamp(f.point_ids.to(torch.int64), 0, 255)
-        proj = tref.project(x, idx.A).reshape(256, 2, 4)
+        proj = tref.lsh_project(x, idx.A).reshape(256, 2, 4)
         want = proj[rows, torch.arange(2)[:, None]] * f.valid[..., None]
         assert torch.equal(f.proj_sorted, want), impl
         assert idx.search(q, tapi.SearchRequest(k=3)).ids.shape == (2, 3)

@@ -556,7 +556,7 @@ def test_streaming_entry_points_follow_the_device_rule(tmp_path,
         tapi.load(tmp_path / "snap")
     # project_impl in the pallas names builds now: the base build, and a
     # seal on the reference-builder path, project through lsh_project (its
-    # plain version on the CPU, the d-order sum).
+    # plain version on the CPU, the d-order FMA sum).
     from repro_torch.kernels import ref
     rows = make_clustered(rng, 40, D)
     for impl in ("pallas", "pallas_interpret"):
@@ -568,7 +568,7 @@ def test_streaming_entry_points_follow_the_device_rule(tmp_path,
                             built.bp_all, Nr=32, leaf_size=16, seg_id=1,
                             project_impl=impl, build_impl="reference")
         f = seg.forest
-        want = ref.project(torch.tensor(rows), built.A).reshape(40, 4, 4)
+        want = ref.lsh_project(torch.tensor(rows), built.A).reshape(40, 4, 4)
         got = torch.empty_like(want)
         for l in range(4):
             got[f.point_ids[l, :40].to(torch.int64), l] = f.proj_sorted[l, :40]
