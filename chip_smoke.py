@@ -13,10 +13,17 @@ Phases, each printed as one line; any failure exits non-zero:
              HMMA (tensor-core) instructions in each of range_rerank's six
              rerank instances (must be > 0) and its two admission
              instances; FFMA, FMUL and FADD in lsh_project's four (f32
-             and bf16, 512- and 128-row blocks; FFMA must be > 0, HMMA 0).
+             and bf16, 512- and 128-row blocks; FFMA must be > 0, HMMA 0)
+             and in project_encode_pack's nine (FFMA > 0, FMUL, FADD
+             and HMMA 0: the projection is one FMA a feature).
   encode_pack  the kernel against its plain PyTorch version at n rows,
-             K=16/L=4 and K=4/L=16 (where the low key word is zero): all
-             four outputs bit-identical; CUDA-event times.
+             K=16/L=4 and K=4/L=16 (where the low key word is zero), and
+             at a decode head's shape (32,768 rows, K=4/L=4, Nr=64, the
+             prefill's per-head build): all four outputs bit-identical;
+             CUDA-event times.  encode_pack_edge_cases: runs of equal
+             edges, coordinates on edges, +-inf and NaN at Nr = 2, 3, 64,
+             256, K = 1, 4, 5, 8, 16 and L*K = 2,048, bit-identical (NaN
+             coded 0, +inf the last code).
   main_path  a static index at SIFT1M's shape (n x 128 f32 from a seed),
              IndexSpec(K=16, L=4, c=1.5, beta_override=0.1, Nr=256,
              leaf_size=64) built through repro_torch.api.build on cuda, one
@@ -58,10 +65,11 @@ Phases, each printed as one line; any failure exits non-zero:
   persist    save -> load(device='cuda') -> search gives bit-identical ids
              and distances, on the fused and on the vmap request.
   project_encode_pack  the streaming seal's kernel against its plain version
-             on the main path's rows (n = 1M x 128, K=16/L=4 and K=4/L=16)
-             and at the seal shape (16,384 rows): all four outputs
-             bit-identical; CUDA-event times, and the unfused pair
-             (torch.matmul, then the encode_pack kernel) as a yardstick.
+             (encode_pack of lsh_project's FMA sum) on the main path's rows
+             (n = 1M x 128, K=16/L=4 and K=4/L=16) and at the seal shape
+             (16,384 rows): all four outputs bit-identical; CUDA-event
+             times, and the unfused pair (torch.matmul, then the
+             encode_pack kernel) as a yardstick; each call's host time.
   streaming_path  a streaming index at SIFT1M's shape through
              repro_torch.api.build(IndexSpec(kind='streaming', ...,
              delta_capacity=16384, max_segments=4)): 4 x 16,384 upserted rows
@@ -108,11 +116,14 @@ Phases, each printed as one line; any failure exits non-zero:
              answers, and again resharded onto 4 shards of the card.
   wide_rows  the width limits lifted: range_rerank at d = 1,536 (50,000
              rows, B = 100), range_rerank_heads at d = 1,537 (4 forests,
-             each head also bit-identical to a single-forest launch), both
-             with the +inf mask of the plain version and finite entries
-             within range_rerank's tolerance; project_encode_pack at
-             d = 2,048 (16,384 rows) and encode_pack at L*K = 2,048
-             (K = 16, L = 128: two launches in one call), bit-identical.
+             rows stored at a pitch of 1,540 floats as the decode index
+             stores its rows, each head also bit-identical to a
+             single-forest launch, and the whole output to one over the
+             same rows stored densely), both with the +inf mask of the
+             plain version and finite entries within range_rerank's
+             tolerance; project_encode_pack at d = 2,048 (16,384 rows) and
+             encode_pack at L*K = 2,048 (K = 16, L = 128: 32 groups of
+             trees on grid.y), bit-identical.
   flash_attention  the kernel against its plain version (blockwise online
              softmax) within ref.flash_attention_tolerance, each call on
              the path flash_attention.path names: Qwen3-1.7B's prefill
@@ -139,8 +150,10 @@ Phases, each printed as one line; any failure exits non-zero:
              every step); range_rerank_heads must launch once a retrieval
              round for all 32 heads.  Then:
              range_rerank_heads against its plain version at the
-             estimated radius and head by head bit-identical to the
-             single-forest kernel; a retrieval at r_min = 1e6 in one round
+             estimated radius, head by head bit-identical to the
+             single-forest kernel, and bit-identical to a launch on the
+             same rows stored densely (the index stores d = 129 at a
+             pitch of 132 floats); a retrieval at r_min = 1e6 in one round
              whose forest tier is the exact top-64 lane by lane (ties
              counted); planted-position recall over 8 trials; sparse
              attention over every position equal to dense attention within
@@ -209,13 +222,83 @@ def time_ms(torch, fn, *, warmup: int = 2, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def wrapper_host_ms(torch, fn, *, reps: int = 10) -> float:
+    """Median host time of one call of ``fn`` made on an idle card: its
+    wrapper's checks, allocations and launch calls, which time_ms counts
+    where they come before the call's first kernel."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_encode_pack(torch, n: int, K: int, L: int, Nr: int) -> dict:
+def _edge_case_inputs(torch, n: int, D: int, Nr: int, seed: int) -> tuple:
+    """Breakpoints (D, Nr+1) with a run of equal inner edges, and
+    coordinates (n, D) on the first, a run's and the last inner edge, on
+    the outer edge, at +-inf, NaN, and on random inner edges beside random
+    values."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bp = torch.sort(torch.randn((D, Nr + 1), generator=gen, device="cuda")
+                    * 2.0, dim=1).values
+    if Nr >= 4:
+        mid = Nr // 2
+        bp[:, mid:mid + 3] = bp[:, mid, None]
+    proj = torch.randn((n, D), generator=gen, device="cuda") * 2.0
+    proj[0], proj[1], proj[2], proj[3] = (bp[:, 1], bp[:, Nr // 2],
+                                          bp[:, Nr - 1], bp[:, 0])
+    proj[4, ::2], proj[4, 1::2] = float("inf"), float("-inf")
+    proj[5, ::3] = float("nan")
+    rows = torch.randint(6, n, (n,), generator=gen, device="cuda")
+    cols = torch.randint(0, D, (n,), generator=gen, device="cuda")
+    at = torch.randint(1, Nr, (n,), generator=gen, device="cuda")
+    proj[rows, cols] = bp[cols, at]
+    return proj, bp
+
+
+def check_encode_edge_cases(torch) -> dict:
+    """encode_pack against its plain version on _edge_case_inputs at
+    Nr = 2, 3, 64 and 256, K = 4, 8 and 16 and the generic instance's
+    K = 1 and 5, and L*K = 2,048: all four outputs bit-identical (f32 by their bits, NaN
+    included), NaN coded 0, +inf the last code, -inf 0."""
+    from repro_torch.kernels import build_fused, ref
+    cases = [(4096, 1, 3, 2), (4096, 4, 4, 3), (32768, 4, 4, 64),
+             (20000, 16, 4, 256), (5000, 5, 13, 256), (4096, 16, 128, 256),
+             (3000, 1, 70, 64), (8192, 8, 6, 256)]
+    for i, (n, K, L, Nr) in enumerate(cases):
+        proj, bp = _edge_case_inputs(torch, n, L * K, Nr, seed=90 + i)
+        got = build_fused.encode_pack(proj, bp, K=K, L=L)
+        want = ref.encode_pack(proj, bp, K=K, L=L)
+        for name, g, w in zip(("proj_t", "codes_t", "key_hi", "key_lo"),
+                              got, want):
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            require(g.dtype == w.dtype and torch.equal(g, w),
+                    f"encode_pack edge cases n={n} K={K} L={L} Nr={Nr}: "
+                    f"{name} differs from the plain version")
+        codes = got[1].permute(1, 0, 2).reshape(n, L * K)
+        require(bool((codes[5, ::3] == 0).all()
+                     and (codes[4, ::2] == Nr - 1).all()
+                     and (codes[4, 1::2] == 0).all()),
+                f"encode_pack edge cases K={K} Nr={Nr}: NaN / +-inf codes")
+    out = dict(cases=[dict(n=n, K=K, L=L, Nr=Nr) for n, K, L, Nr in cases],
+               bit_identical=True)
+    line("encode_pack_edge_cases", **out)
+    return out
+
+
+def check_encode_pack(torch, n: int, K: int, L: int, Nr: int,
+                      case: str = "") -> dict:
     from repro_torch.core.encoding import breakpoints_sample_sort
     from repro_torch.kernels import build_fused, ref
     gen = torch.Generator(device="cuda").manual_seed(K * 100 + L)
@@ -243,8 +326,8 @@ def check_encode_pack(torch, n: int, K: int, L: int, Nr: int) -> dict:
     nbytes = 4 * n * D + 4 * D * (Nr + 1) + (4 + 4) * n * D + 2 * 8 * L * n
     flops = n * D * math.ceil(math.log2(Nr))          # one compare per step
     bms, by = bound_ms(nbytes, flops)
-    out = dict(K=K, L=L, n=n, bit_identical=True, max_abs_err=max_err,
-               ms=ms, plain_ms=plain,
+    out = dict(case=case, K=K, L=L, n=n, Nr=Nr, bit_identical=True,
+               max_abs_err=max_err, ms=ms, plain_ms=plain,
                bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
                key_hi_max=int(got[2].max()))
     line("encode_pack", **out)
@@ -778,7 +861,8 @@ def check_project_encode_pack(torch, x, K: int, L: int, Nr: int,
     """The seal's kernel against its plain version on rows ``x`` (n, d) of
     the card: all four outputs bit-identical (the projection is summed in
     the same d order).  The unfused pair, torch.matmul then the
-    encode_pack kernel, is timed beside it as a yardstick."""
+    encode_pack kernel, is timed beside it as a yardstick, and both calls'
+    host times (``wrapper_host_ms``) beside their times."""
     from repro_torch.core.encoding import breakpoints_sample_sort
     from repro_torch.kernels import build_fused, ref
     n, d = x.shape
@@ -806,13 +890,19 @@ def check_project_encode_pack(torch, x, K: int, L: int, Nr: int,
                     warmup=1, reps=3)
     unfused = time_ms(torch, lambda: build_fused.encode_pack(
         torch.matmul(x, a), bp, K=K, L=L))
+    host = wrapper_host_ms(torch, lambda: build_fused.project_encode_pack(
+        x, a, bp, K=K, L=L))
+    unfused_host = wrapper_host_ms(torch, lambda: build_fused.encode_pack(
+        torch.matmul(x, a), bp, K=K, L=L))
     nbytes = (4 * n * d + 4 * d * D + 4 * D * (Nr + 1) + (4 + 4) * n * D
               + 2 * 8 * L * n)
     flops = 2 * n * d * D + n * D * math.ceil(math.log2(Nr))
     bms, by = bound_ms(nbytes, flops)
     out = dict(case=case, n=n, d=d, K=K, L=L, bit_identical=True,
                max_abs_err=max_err, ms=ms, plain_ms=plain, unfused_ms=unfused,
-               bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+               wrapper_host_ms=host, unfused_wrapper_host_ms=unfused_host,
+               bound_ms=bms,
+               bound_by=by, bytes=nbytes, flops=flops)
     line("project_encode_pack", **out)
     return out
 
@@ -1445,7 +1535,10 @@ def kernel_sass() -> dict:
     range_rerank's rerank kernel (heads x 64-point columns a block), which
     must be > 0, and in its admission kernel (none); FFMA, FMUL and FADD
     in lsh_project's kernels (f32 and bf16, 512- and 128-row blocks: one
-    FFMA a feature and output; FFMA must be > 0)."""
+    FFMA a feature and output; FFMA must be > 0) and in project_encode_pack's
+    nine instances (K = 4, 8, 16 and any K on 128- and 64-row blocks, any K
+    on 32-row blocks), whose projection is one FFMA a feature: FFMA > 0 and
+    no FMUL, FADD or HMMA anywhere in them."""
     kinds = {f"{'heads' if h else 'single'}_cols{c}":
              f"range_rerank_kernelILb{h}ELi{c}E"
              for h in (0, 1) for c in (2, 4, 8)}
@@ -1463,7 +1556,20 @@ def kernel_sass() -> dict:
     require(len(lp) == 4 and all(v["FFMA"] > 0 and v["HMMA"] == 0
                                  for v in lp.values()),
             f"lsh_project: no FFMA (or a tensor-core op) in its SASS: {lp}")
-    out = {"range_rerank": rr, "lsh_project": lp}
+    inst = [(k, tr) for k in (4, 8, 16, 0) for tr in (4, 2)]
+    inst.append((0, 1))
+    pep = sass_counts("project_encode_pack", {
+        f"K{k or 'any'}_rows{32 * tr}":
+        f"project_encode_pack_kernelILi{k}ELi{tr}E" for k, tr in inst},
+        ("FFMA", "FMUL", "FADD", "HMMA"))
+    proj = [v for k, v in pep.items() if k.startswith("K")]
+    require(len(proj) == len(inst)
+            and all(v["FFMA"] > 0 and v["FMUL"] == v["FADD"] == v["HMMA"] == 0
+                    for v in proj),
+            f"project_encode_pack: a projection instance with FMUL, FADD or "
+            f"a tensor-core op, or without FFMA, in its SASS: {pep}")
+    out = {"range_rerank": rr, "lsh_project": lp,
+           "project_encode_pack": pep}
     line("kernel_sass", **out)
     return out
 
@@ -1472,10 +1578,13 @@ def _wide_forest(torch, n: int, d: int, K: int, L: int, ls: int, B: int,
                  seed: int) -> tuple:
     """A forest over n random rows of width d on the card, B queries near
     its first rows, and per-lane radii at the 5 % point of each lane's leaf
-    lower bounds, so that some leaves are admitted and most are not."""
+    lower bounds, so that some leaves are admitted and most are not.  The
+    sorted points are stored as the decode index stores its rows: at a
+    pitch of a multiple of 4 floats (``pad_rows``)."""
     from repro_torch.core import detree
     from repro_torch.core.query import make_fused_plan
     from repro_torch.kernels import ref
+    from repro_torch.kernels.range_rerank import pad_rows
     gen = torch.Generator("cuda").manual_seed(seed)
     data = torch.randn((n, d), generator=gen, device="cuda")
     A = torch.randn((d, L * K), generator=gen, device="cuda")
@@ -1488,7 +1597,17 @@ def _wide_forest(torch, n: int, d: int, K: int, L: int, ls: int, B: int,
                             forest.leaf_valid, forest.breakpoints)
     flat = lb.permute(1, 0, 2).reshape(B, -1)
     r = flat.kthvalue(max(1, flat.shape[1] // 20), dim=1).values
-    return forest, plan.points_sorted, q, q_proj, r.contiguous()
+    return forest, pad_rows(plan.points_sorted), q, q_proj, r.contiguous()
+
+
+def _unpadded_heads(torch, args, ls: int):
+    """range_rerank_heads on the same points stored densely (row pitch d,
+    4-byte copies when d is not a multiple of 4): the launch the padded
+    rows must equal bit for bit."""
+    from repro_torch.kernels import range_rerank as rrk
+    dense = list(args)
+    dense[7] = args[7].contiguous()
+    return rrk.range_rerank_heads(*dense, leaf_size=ls)
 
 
 def _held_rerank(torch, tag: str, got, want, points) -> float:
@@ -1514,6 +1633,7 @@ def wide_rows(torch) -> dict:
     version (bit-identical where the kernel is)."""
     from repro_torch.kernels import range_rerank as rrk
     from repro_torch.kernels import ref
+    from repro_torch.kernels.range_rerank import pad_rows
     out = {}
     f, pts, q, q_proj, r = _wide_forest(torch, 50_000, 1536, 16, 4, 64, 100,
                                         seed=21)
@@ -1541,7 +1661,7 @@ def wide_rows(torch) -> dict:
              *(torch.stack([getattr(x, name) for x in fs])
                for name in ("leaf_lo", "leaf_hi", "leaf_valid",
                             "breakpoints")),
-             torch.stack([p[1] for p in parts]),
+             pad_rows(torch.stack([p[1] for p in parts])),
              torch.stack([x.valid for x in fs]),
              torch.stack([x.valid for x in fs]))
     got = rrk.range_rerank_heads(*hargs, leaf_size=ls)
@@ -1549,6 +1669,8 @@ def wide_rows(torch) -> dict:
     torch.cuda.synchronize()
     err = _held_rerank(torch, "range_rerank_heads d=1537", got, want,
                        hargs[7])
+    require(torch.equal(got, _unpadded_heads(torch, hargs, ls)),
+            "range_rerank_heads d=1537: padded rows differ from unpadded")
     for h in range(H):
         single = rrk.range_rerank(*(a[h] for a in hargs), leaf_size=ls)
         require(torch.equal(got[h], single),
@@ -1556,6 +1678,7 @@ def wide_rows(torch) -> dict:
                 f"single-forest launch")
     out["range_rerank_heads_d1537"] = dict(
         H=H, n=8192, g=2, max_abs_err=err, heads_bit_identical=True,
+        padded_bit_identical=True, pitch=hargs[7].stride(-2),
         ms=time_ms(torch, lambda: rrk.range_rerank_heads(*hargs,
                                                          leaf_size=ls)))
     del parts, fs, hargs, got, want
@@ -1565,7 +1688,7 @@ def wide_rows(torch) -> dict:
         torch, x, 16, 4, 256, "d=2048")
     del x
     out["encode_pack_LK2048"] = check_encode_pack(torch, 16384, K=16, L=128,
-                                                  Nr=256)
+                                                  Nr=256, case="L*K=2048")
     line("wide_rows", **{k: v for k, v in out.items()
                          if k.startswith("range_rerank")})
     return out
@@ -1657,6 +1780,11 @@ def check_range_rerank_heads(torch, index, q) -> dict:
         require(torch.equal(got[h], single),
                 f"range_rerank_heads: head {h} differs from a single-forest "
                 f"launch")
+    require(f.points_sorted.stride(-2) % 4 == 0,
+            "range_rerank_heads: the decode index's rows are not padded to "
+            "a multiple of 4 floats")
+    require(torch.equal(got, _unpadded_heads(torch, args, ls)),
+            "range_rerank_heads: padded rows differ from unpadded rows")
     lb = torch.stack([ref.forest_leaf_lb(q_proj[h], f.leaf_lo[h],
                                          f.leaf_hi[h], f.leaf_valid[h],
                                          f.breakpoints[h])
@@ -1672,8 +1800,9 @@ def check_range_rerank_heads(torch, index, q) -> dict:
                   ) + 4 * leaves_read * ls * d
     flops = 6 * H * L * g * nl * K + 2 * d * ls * pairs
     bms, by = bound_ms(nbytes, flops)
-    out = dict(H=H, L=L, g=g, n=n, d=d, r_min=r_min, mask_identical=True,
-               heads_bit_identical=True, max_abs_err=float(err.max()),
+    out = dict(H=H, L=L, g=g, n=n, d=d, pitch=f.points_sorted.stride(-2),
+               r_min=r_min, mask_identical=True, heads_bit_identical=True,
+               padded_bit_identical=True, max_abs_err=float(err.max()),
                finite=int(fin.sum()), admitted_pairs=pairs,
                leaves_read=leaves_read, bound_ms=bms, bound_by=by,
                bytes=nbytes, flops=flops)
@@ -2000,6 +2129,9 @@ def main() -> int:
 
     enc = check_encode_pack(torch, n, K=16, L=4, Nr=256)
     enc4 = check_encode_pack(torch, n, K=4, L=16, Nr=256)
+    enc_decode = check_encode_pack(torch, 32768, K=4, L=4, Nr=64,
+                                   case="decode head")
+    check_encode_edge_cases(torch)
     index, queries, res, req, launches, res_scaled = main_path(torch, n,
                                                                B=100)
     lbd = check_leaf_bounds(torch, index, queries)
@@ -2050,7 +2182,8 @@ def main() -> int:
                             wide["encode_pack_LK2048"]["max_abs_err"]),
          "ms": enc["ms"], "plain_ms": enc["plain_ms"],
          "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "decode_head_ms": enc_decode["ms"],
+         "decode_head_bound_ms": enc_decode["bound_ms"]},
         {"name": "range_rerank", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/range_rerank.cu",
          "replaces": "src/repro/kernels/range_rerank.py:90",

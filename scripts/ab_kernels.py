@@ -23,13 +23,24 @@ times:
 - ``range_rerank_heads``: 32 forests at decode's widths (32,768 random
   rows of d = 129 each, K = 4, L = 4, leaves of 32, g = 2 lanes a forest
   at the 5 % point of their leaf bounds: ``chip_smoke._wide_forest``);
-  held as ``range_rerank``.
+  held as ``range_rerank``.  This tree reads the rows as the decode index
+  stores them (a pitch of 132 floats, ``pad_rows``), the old one densely.
+  ``range_rerank_heads_d1537``: the same at 4 forests of 8,192 rows of
+  d = 1,537 (chip_smoke's ``wide_rows``).
+- ``encode_pack``: 1,000,000 rows, K = 16, L = 4, Nr = 256;
+  ``encode_pack_LK2048``: 16,384 rows, K = 16, L = 128;
+  ``encode_pack_decode_head``: 32,768 rows, K = 4, L = 4, Nr = 64 (a
+  decode prefill's per-head build); bit-identical.
 - ``lsh_project``: those rows times the index's (128, 64) A, f32 (the
   sum is one FMA a feature since PR 18, a rounded product and a rounded
   sum before, so the two differ in the last bits: compared by their
   largest difference).
 - ``project_encode_pack``: those rows and a (128, 64) matrix, K = 16,
-  L = 4, Nr = 256; bit-identical.
+  L = 4, Nr = 256; ``project_encode_pack_seal``: their first 16,384
+  rows; ``project_encode_pack_d2048``: 16,384 random rows of d = 2,048.
+  Bit-identical where both trees sum alike; against a tree whose sum is
+  a rounded product and a rounded sum the count of unequal entries is
+  printed.
 - ``flash_f32_prefill``, ``flash_bf16_prefill``: b = 1, h = 16, sq = sk =
   32,768, dh = 128, causal (old: its one kernel; new: the wrapper's path).
 - ``flash_f32_decode``, ``flash_bf16_decode``: b = 4, h = 16, sq = 1,
@@ -106,6 +117,10 @@ def main() -> int:
     old_tree = os.path.abspath(args.old_tree)
     stream = torch.cuda.current_stream().cuda_stream
 
+    def wanted(*names):
+        return args.cases == "all" or any(
+            n in args.cases.split(",") for n in names)
+
     data = datasets.sift_like(1_000_000, 128, seed=0)
     queries_np = datasets.perturbed_queries(data, 100, seed=1)
     spec = api.IndexSpec(kind="static", K=16, L=4, c=1.5, beta_override=0.1,
@@ -120,67 +135,90 @@ def main() -> int:
     f, plan, p = index.forest, index.fused_plan(), index.params
     B = queries.shape[0]
     r_adm = (p.epsilon * res.stats.final_r).expand(p.L, B).contiguous()
-    laid, (L, B, d, nl, K, E) = rr._prepare(
+    laid, (L, B, d, nl, K, E), pitches = rr._prepare(
         "range_rerank", (queries, chip_smoke._q_proj(index, queries), r_adm,
                          f.leaf_lo, f.leaf_hi, f.leaf_valid, f.breakpoints,
                          plan.points_sorted, f.valid, f.valid), (),
         f.leaf_size)
     rr_out = {v: torch.empty((L, B, nl * f.leaf_size), device="cuda")
               for v in ("old", "new")}
-    # Since PR 18 the launch takes the admission table's scratch after out.
-    old_rr = _build_old(old_tree, "range_rerank").range_rerank_launch
-    scratch = "admit_kernel" in open(os.path.join(
-        old_tree, "src", "repro_torch", "kernels", "csrc",
-        "range_rerank.cu")).read()
-    rr_fn = {"old": _typed(old_rr, 12 if scratch else 11, "iiiiiii"),
-             "new": _typed(_build.load("range_rerank").range_rerank_launch,
-                           12, "iiiiiii")}
+    # A tree with an admission kernel takes its scratch after out; one whose
+    # launch knows row pitches takes them (ldq, ldp) after the leaf size.
+    old_rr_lib = _build_old(old_tree, "range_rerank")
+    rr_src = open(os.path.join(old_tree, "src", "repro_torch", "kernels",
+                               "csrc", "range_rerank.cu")).read()
+    scratch = "admit_kernel" in rr_src
+    old_pitch = "int ldq" in rr_src
+    new_lib = _build.load("range_rerank")
+    rr_fn = {"old": _typed(old_rr_lib.range_rerank_launch,
+                           12 if scratch else 11,
+                           "iiiiiiiii" if old_pitch else "iiiiiii"),
+             "new": _typed(new_lib.range_rerank_launch, 12, "iiiiiiiii")}
     admit = torch.empty((L * nl * B,), dtype=torch.uint8, device="cuda")
 
     def rr_run(v):
         extra = (admit.data_ptr(),) if v == "new" or scratch else ()
+        ld = pitches if v == "new" or old_pitch else ()
         code = rr_fn[v](*(a.data_ptr() for a in laid), rr_out[v].data_ptr(),
-                        *extra, L, B, d, nl, K, E, f.leaf_size, stream)
+                        *extra, L, B, d, nl, K, E, f.leaf_size, *ld, stream)
         assert code == 0, (v, code)
         return rr_out[v]
     max_sq = float((index.data * index.data).sum(-1).max())
     cases["range_rerank"] = (rr_run, ("held", max_sq), 10)
 
-    # range_rerank_heads: the same two signatures with a leading H.
-    H = 32
-    parts = [chip_smoke._wide_forest(torch, 32768, 129, 4, 4, 32, 2,
-                                     seed=60 + h) for h in range(H)]
-    fs = [x[0] for x in parts]
-    hargs = (torch.stack([x[2] for x in parts]),
-             torch.stack([x[3] for x in parts]),
-             torch.stack([x[4] for x in parts])[:, None, :].expand(
-                 H, 4, 2).contiguous(),
-             *(torch.stack([getattr(f_, name) for f_ in fs])
-               for name in ("leaf_lo", "leaf_hi", "leaf_valid",
-                            "breakpoints")),
-             torch.stack([x[1] for x in parts]),
-             torch.stack([f_.valid for f_ in fs]),
-             torch.stack([f_.valid for f_ in fs]))
-    del parts, fs
-    hlaid, hsizes = rr._prepare("range_rerank_heads", hargs, (H,), 32)
-    rrh_out = {v: torch.empty((H, *hsizes[:2], hsizes[3] * 32),
-                              device="cuda") for v in ("old", "new")}
-    old_rrh = _build_old(old_tree, "range_rerank").range_rerank_heads_launch
-    rrh_fn = {"old": _typed(old_rrh, 12 if scratch else 11, "iiiiiiii"),
-              "new": _typed(_build.load("range_rerank")
-                            .range_rerank_heads_launch, 12, "iiiiiiii")}
-    hadmit = torch.empty((H * hsizes[0] * hsizes[3] * hsizes[1],),
-                         dtype=torch.uint8, device="cuda")
+    # range_rerank_heads: the same signatures with a leading H.  The old
+    # tree reads the rows densely (row pitch d); this one reads them as the
+    # decode index stores them, at a pitch of a multiple of 4 floats.
+    old_rrh = _typed(old_rr_lib.range_rerank_heads_launch,
+                     12 if scratch else 11,
+                     "iiiiiiiiii" if old_pitch else "iiiiiiii")
+    new_rrh = _typed(new_lib.range_rerank_heads_launch, 12, "iiiiiiiiii")
 
-    def rrh_run(v):
-        extra = (hadmit.data_ptr(),) if v == "new" or scratch else ()
-        code = rrh_fn[v](*(a.data_ptr() for a in hlaid),
-                         rrh_out[v].data_ptr(), *extra, H, *hsizes, 32,
-                         stream)
-        assert code == 0, (v, code)
-        return rrh_out[v]
-    cases["range_rerank_heads"] = (
-        rrh_run, ("held", float((hlaid[7] ** 2).sum(-1).max())), 10)
+    def heads_case(H, n, dim, K_, seed):
+        parts = [chip_smoke._wide_forest(torch, n, dim, K_, 4, 32, 2,
+                                         seed=seed + h) for h in range(H)]
+        fs = [x[0] for x in parts]
+        hargs = (torch.stack([x[2] for x in parts]),
+                 torch.stack([x[3] for x in parts]),
+                 torch.stack([x[4] for x in parts])[:, None, :].expand(
+                     H, 4, 2).contiguous(),
+                 *(torch.stack([getattr(f_, name) for f_ in fs])
+                   for name in ("leaf_lo", "leaf_hi", "leaf_valid",
+                                "breakpoints")),
+                 rr.pad_rows(torch.stack([x[1] for x in parts])),
+                 torch.stack([f_.valid for f_ in fs]),
+                 torch.stack([f_.valid for f_ in fs]))
+        del parts, fs
+        laid_v = {"new": rr._prepare("range_rerank_heads", hargs, (H,), 32)}
+        dense = list(hargs)
+        dense[0], dense[7] = hargs[0].contiguous(), hargs[7].contiguous()
+        old_laid, old_sizes, old_pitches = rr._prepare(
+            "range_rerank_heads", tuple(dense), (H,), 32)
+        if not old_pitch:          # a tree that reads q at a pitch of d
+            old_laid = (dense[0], *old_laid[1:])
+        laid_v["old"] = (old_laid, old_sizes, old_pitches)
+        sizes = laid_v["new"][1]
+        outs = {v: torch.empty((H, *sizes[:2], sizes[3] * 32),
+                               device="cuda") for v in ("old", "new")}
+        hadmit = torch.empty((H * sizes[0] * sizes[3] * sizes[1],),
+                             dtype=torch.uint8, device="cuda")
+
+        def run(v):
+            hl, hs, hp = laid_v[v]
+            extra = (hadmit.data_ptr(),) if v == "new" or scratch else ()
+            ld = hp if v == "new" or old_pitch else ()
+            code = (new_rrh if v == "new" else old_rrh)(
+                *(a.data_ptr() for a in hl), outs[v].data_ptr(), *extra, H,
+                *hs, 32, *ld, stream)
+            assert code == 0, (v, code)
+            return outs[v]
+        return run, ("held", float((dense[7] ** 2).sum(-1).max()))
+    if wanted("range_rerank_heads"):
+        run, held = heads_case(32, 32768, 129, 4, 60)
+        cases["range_rerank_heads"] = (run, held, 10)
+    if wanted("range_rerank_heads_d1537"):
+        run, held = heads_case(4, 8192, 1537, 4, 30)
+        cases["range_rerank_heads_d1537"] = (run, held, 10)
 
     # lsh_project: one C signature in both trees.
     lp_out = {v: torch.empty((index.data.shape[0], 64), device="cuda")
@@ -199,41 +237,108 @@ def main() -> int:
         return lp_out[v]
     cases["lsh_project"] = (lp_run, "diff", 10)
 
-    # project_encode_pack: since PR 17 the launch takes a's row stride
-    # after d.
-    x, a = index.data, torch.randn((128, 64), device="cuda",
-                                   generator=torch.Generator(
-                                       "cuda").manual_seed(7))
-    bp = breakpoints_sample_sort(x @ a, 256)
-    _, hi, lo = key_bit_budget(16)
-    n = x.shape[0]
-    pep_out = {v: build_fused._outputs(n, 16, 4, x.device)
-               for v in ("old", "new")}
+    # encode_pack: a tree whose source builds Eytzinger tables covers every
+    # tree in one launch; an older one was launched once per group of trees
+    # whose (32, L_g*K + 1) f32 + u8 tile fit 227 KB, with proj offset to
+    # the group's columns.  The launch signature is the same.
     old_src = os.path.join(old_tree, "src", "repro_torch", "kernels", "csrc")
-    old_lda = "int lda" in open(os.path.join(
-        old_src, "project_encode_pack.cu")).read()
+    old_single = "eytzinger" in open(os.path.join(old_src,
+                                                  "encode_pack.cu")).read()
+    ep_old = _typed(_build_old(old_tree, "encode_pack").encode_pack_launch,
+                    6, "liiiiii")
+    ep_new = _typed(_build.load("encode_pack").encode_pack_launch, 6,
+                    "liiiiii")
+
+    def encode_case(n, K, L, Nr):
+        D = L * K
+        proj = torch.randn((n, D), device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(K * 100 + L)) * 2.0
+        bp = breakpoints_sample_sort(proj, Nr)
+        _, hi, lo = key_bit_budget(K)
+        outs = {v: build_fused._outputs(n, K, L, proj.device)
+                for v in ("old", "new")}
+        per = (232448 - 32 * 5) // (32 * 5 * K)
+
+        def run(v):
+            o = outs[v]
+            if v == "new" or old_single:
+                code = (ep_new if v == "new" else ep_old)(
+                    proj.data_ptr(), bp.data_ptr(),
+                    *(t.data_ptr() for t in o), n, D, K, L, Nr, hi, lo,
+                    stream)
+                assert code == 0, (v, code)
+                return o
+            for l0 in range(0, L, per):
+                code = ep_old(proj[:, l0 * K:].data_ptr(),
+                              bp[l0 * K].data_ptr(),
+                              *(t[l0].data_ptr() for t in o), n, D, K,
+                              min(L, l0 + per) - l0, Nr, hi, lo, stream)
+                assert code == 0, (v, code)
+            return o
+        return run
+    for name, shape in (("encode_pack", (1_000_000, 16, 4, 256)),
+                        ("encode_pack_LK2048", (16384, 16, 128, 256)),
+                        ("encode_pack_decode_head", (32768, 4, 4, 64))):
+        if wanted(name):
+            cases[name] = (encode_case(*shape), "equal", 10)
+
+    # project_encode_pack: a tree whose launch takes a's row stride (lda)
+    # has it after d; one that reads Eytzinger tables takes their scratch
+    # after bp, and sums one FMA a feature (a rounded product and a rounded
+    # sum in older trees: the codes of the two then differ near edges, so
+    # they are compared by the count of unequal entries).
+    old_pep_src = open(os.path.join(old_src, "project_encode_pack.cu")).read()
+    old_lda = "int lda" in old_pep_src
+    old_pep_eyt = "eyt" in old_pep_src
     pep_old = _typed(_build_old(old_tree, "project_encode_pack")
-                     .project_encode_pack_launch, 7,
+                     .project_encode_pack_launch,
+                     8 if old_pep_eyt else 7,
                      "liiiiiii" if old_lda else "liiiiii")
     pep_new = _typed(_build.load("project_encode_pack")
-                     .project_encode_pack_launch, 7, "liiiiiii")
+                     .project_encode_pack_launch, 8, "liiiiiii")
 
-    def pep_run(v):
-        ptrs = (x.data_ptr(), a.data_ptr(), bp.data_ptr(),
-                *(o.data_ptr() for o in pep_out[v]))
-        lda = (64,) if v == "new" or old_lda else ()
-        code = (pep_new if v == "new" else pep_old)(
-            *ptrs, n, 128, *lda, 16, 4, 256, hi, lo, stream)
-        assert code == 0, (v, code)
-        return pep_out[v]
-    cases["project_encode_pack"] = (pep_run, "equal", 10)
+    def pep_case(x):
+        n, dim = x.shape
+        a = torch.randn((dim, 64), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7))
+        bp = breakpoints_sample_sort(x @ a, 256)
+        _, hi, lo = key_bit_budget(16)
+        outs = {v: build_fused._outputs(n, 16, 4, x.device)
+                for v in ("old", "new")}
+        eyt = torch.empty((64, build_fused._table_width(bp)), device="cuda")
+
+        def run(v):
+            ptrs = (x.data_ptr(), a.data_ptr(), bp.data_ptr())
+            if v == "new" or old_pep_eyt:
+                ptrs += (eyt.data_ptr(),)
+            lda = (64,) if v == "new" or old_lda else ()
+            code = (pep_new if v == "new" else pep_old)(
+                *ptrs, *(o.data_ptr() for o in outs[v]), n, dim, *lda, 16, 4,
+                256, hi, lo, stream)
+            assert code == 0, (v, code)
+            return outs[v]
+        return run
+    x = index.data
+    if wanted("project_encode_pack"):
+        cases["project_encode_pack"] = (pep_case(x), "count", 10)
+    if wanted("project_encode_pack_seal"):
+        cases["project_encode_pack_seal"] = (
+            pep_case(x[:16384].contiguous()), "count", 10)
+    if wanted("project_encode_pack_d2048"):
+        cases["project_encode_pack_d2048"] = (pep_case(torch.randn(
+            (16384, 2048), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(40))), "count", 10)
 
     # flash_attention: the old tree's launch (one kernel before the launch
     # paths, else its prefill or decode launch) against the new wrapper.
     from repro_torch.kernels import flash_attention as fak
-    fa_lib = _build_old(old_tree, "flash_attention")
+    fa_lib = (_build_old(old_tree, "flash_attention")
+              if wanted("flash_f32_prefill", "flash_bf16_prefill",
+                        "flash_f32_decode", "flash_bf16_decode") else None)
     paths = hasattr(fa_lib, "flash_attention_prefill_launch")
-    if paths:
+    if fa_lib is None:
+        pass
+    elif paths:
         fa_pre = _typed(fa_lib.flash_attention_prefill_launch, 4,
                         "iiiiifiii")
         fa_dec = _typed(fa_lib.flash_attention_decode_launch, 5,
@@ -270,16 +375,16 @@ def main() -> int:
             assert code == 0, code
             return out
         return run
-    cases["flash_f32_prefill"] = (flash_case(1, 16, 32768, 32768,
-                                             torch.float32, True), "diff", 3)
-    cases["flash_bf16_prefill"] = (flash_case(1, 16, 32768, 32768,
-                                              torch.bfloat16, True), "diff",
-                                   3)
-    cases["flash_f32_decode"] = (flash_case(4, 16, 1, 32768, torch.float32,
-                                            False), "diff", 10)
-    cases["flash_bf16_decode"] = (flash_case(4, 16, 1, 32768,
-                                             torch.bfloat16, False), "diff",
-                                  10)
+    for name, shape, dtype, causal, reps in (
+            ("flash_f32_prefill", (1, 16, 32768, 32768), torch.float32, True,
+             3),
+            ("flash_bf16_prefill", (1, 16, 32768, 32768), torch.bfloat16,
+             True, 3),
+            ("flash_f32_decode", (4, 16, 1, 32768), torch.float32, False, 10),
+            ("flash_bf16_decode", (4, 16, 1, 32768), torch.bfloat16, False,
+             10)):
+        if wanted(name):
+            cases[name] = (flash_case(*shape, dtype, causal), "diff", reps)
 
     out = {"gpu": chip_smoke.nvidia_smi()}
     ok = True
@@ -291,6 +396,8 @@ def main() -> int:
         if compare == "equal":
             agree = bool(torch.equal(got["old"], got["new"]))
             ok &= agree
+        elif compare == "count":
+            agree = {"unequal_entries": int((got["old"] != got["new"]).sum())}
         elif compare == "diff":
             agree = float((got["old"] - got["new"]).abs().max())
         else:                       # ("held", max |x|^2)

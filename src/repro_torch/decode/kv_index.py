@@ -44,6 +44,7 @@ from repro_torch.core.query import (_topk_smallest, fused_round_update,
 from repro_torch.core.theory import LSHParams, derive_params
 from repro_torch.decode import mips
 from repro_torch.kernels import ops
+from repro_torch.kernels.range_rerank import row_pitch
 from repro_torch.streaming.memtable import BatchedMemtable
 
 _INF = float("inf")
@@ -106,7 +107,7 @@ class HeadForest(NamedTuple):
     leaf_hi: torch.Tensor        # (H, L, nl, K) int16
     leaf_valid: torch.Tensor     # (H, L, nl) bool
     breakpoints: torch.Tensor    # (H, L, K, Nr+1) f32
-    points_sorted: torch.Tensor  # (H, L, n_pad, d_aug) f32
+    points_sorted: torch.Tensor  # (H, L, n_pad, d_aug) f32, rows padded
     inv_perm: torch.Tensor       # (H, L, n) int32
 
 
@@ -254,11 +255,16 @@ class KVCacheIndex:
                      breakpoints: Optional[np.ndarray] = None) -> HeadForest:
         """Stack per-head ``build_forest`` + ``make_fused_plan`` outputs.
 
+        ``points_sorted`` is a view of the first d_aug columns of rows
+        stored ``row_pitch(d_aug)`` floats apart (zeros beyond d_aug), so
+        that the heads kernel stages them with 16-byte copies.
+
         ``breakpoints`` ((H, L*K, Nr+1), optional) is the reseal path:
         encode with the prefill quantization (outer edges pre-widened by
         the caller) instead of re-selecting per-head quantiles.
         """
         cols = {f: [] for f in HeadForest._fields}
+        points = None
         for h in range(aug.shape[0]):
             f = build_forest(
                 proj[h], spec.K, spec.L, Nr=spec.Nr,
@@ -271,9 +277,15 @@ class KVCacheIndex:
             for name in ("point_ids", "valid", "leaf_lo", "leaf_hi",
                          "leaf_valid", "breakpoints"):
                 cols[name].append(getattr(f, name))
-            cols["points_sorted"].append(plan.points_sorted)
+            if points is None:          # rows 16-byte aligned: d = 129 -> 132
+                ps = plan.points_sorted
+                points = ps.new_zeros((aug.shape[0], *ps.shape[:-1],
+                                       row_pitch(ps.shape[-1])))
+            points[h, ..., :aug.shape[-1]] = plan.points_sorted
             cols["inv_perm"].append(plan.inv_perm)
-        return HeadForest(**{k: torch.stack(v) for k, v in cols.items()})
+        del cols["points_sorted"]
+        return HeadForest(points_sorted=points[..., :aug.shape[-1]],
+                          **{k: torch.stack(v) for k, v in cols.items()})
 
     # ------------------------------------------------------------------
     # Mutation (the decode step's write half)
@@ -453,7 +465,9 @@ class KVCacheIndex:
             "from the cache keys instead of snapshotting")
 
     def index_size_bytes(self) -> int:
-        arrays = sum(a.numel() * a.element_size() for a in self.forest)
+        """Bytes the forest arrays hold, the stored points' row padding
+        included, plus the delta buffer."""
+        arrays = sum(a.untyped_storage().nbytes() for a in self.forest)
         return int(arrays) + int(self.delta.vecs.nbytes)
 
     @property

@@ -20,6 +20,14 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, bool ok) {
                :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0));
 }
 
+// 16 bytes of which the first `bytes` (0..16) are read and the rest are
+// zero-filled (a row's ragged end): src and dst 16-byte aligned.
+__device__ __forceinline__ void copy16_part(void* dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
 // 4 bytes (.ca: .cg takes only 16): src and dst 4-byte aligned.
 __device__ __forceinline__ void copy4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"

@@ -22,7 +22,7 @@
 // fit kMaxPanel bytes, grid.y tiles D into equal column ranges.  The grid is
 // as many blocks as fit on the card at once (each loads its panel once) and
 // they stride over the rows.  The search is count_le of
-// encode_pack_tile.cuh, the one that encode_pack's step 1 runs: branch-free,
+// encode_pack_tile.cuh, a binary search over the sorted edges: branch-free,
 // log2(Nr) steps.
 
 #include <cstdint>

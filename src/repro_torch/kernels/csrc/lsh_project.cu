@@ -26,7 +26,8 @@
 // memory delivers a quarter of a value for each FMA its cores can issue,
 // so an 8 x 8 tile (1/4) leaves no slack and 16 x 8 (3/16) some.
 //
-// Design: a SIMT SGEMM tile.  A block computes kRows = 512 rows x kCols =
+// Design: a SIMT SGEMM tile (project_tile.cuh, shared with
+// project_encode_pack.cu).  A block computes kRows = 512 rows x kCols =
 // 64 output columns (grid.y over column tiles, so any m); each of its 256
 // threads holds a 16 x 8 register tile: rows tr + 32 i (i = 0..15, tr =
 // thread / 8) and columns 4 tc..4 tc+3 and 32 + 4 tc..32 + 4 tc+3 (tc =
@@ -51,137 +52,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "cp_async.cuh"
+#include "project_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTC = 8;            // columns a thread: 4 tc + u, 32 + 4 tc + u
-constexpr int kRowStep = kThreads / kTC;   // 32: rows tr + 32 i a thread
-constexpr int kCols = 64;         // output columns a block
-constexpr int kKC = 32;           // features a ring stage
-constexpr int kStages = 2;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(uint16_t bf16_bits) {
-  return __uint_as_float(static_cast<uint32_t>(bf16_bits) << 16);
-}
-
-// Four consecutive elements from shared memory as f32.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const uint16_t* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(v.x << 16),
-                     __uint_as_float(v.x & 0xffff0000u),
-                     __uint_as_float(v.y << 16),
-                     __uint_as_float(v.y & 0xffff0000u));
-}
-
-template <typename T, int kTR>
-struct Ring {
-  static constexpr int kRows = kRowStep * kTR;         // rows a block
-  static constexpr int kVec = 16 / sizeof(T);          // elements a copy
-  static constexpr int kXPitch = kKC + kVec;           // row + 16 bytes
-  static constexpr int kXElems = kRows * kXPitch;
-  static constexpr int kAElems = kKC * kCols;
-  static constexpr int kStageElems = kXElems + kAElems;
-  static constexpr size_t kBytes = sizeof(T) * kStages * kStageElems;
-};
-
-// Stage features [k0, k0 + kKC) of the block's x rows and A's rows into
-// one ring slot; every thread calls it.  Entries past n, d or m are zeros.
-template <typename T, int kTR>
-__device__ __forceinline__ void stage(T* slot, const T* __restrict__ x,
-                                      const T* __restrict__ a, int64_t n,
-                                      int d, int m, int64_t row0, int c0,
-                                      int k0, bool vec) {
-  using R = Ring<T, kTR>;
-  constexpr int kRows = R::kRows;
-  T* xs = slot;
-  T* as = slot + R::kXElems;
-  const int t = threadIdx.x;
-  if (vec) {
-    constexpr int xv = kKC / R::kVec;                  // copies a row
-    for (int e = t; e < kRows * xv; e += kThreads) {
-      const int r = e / xv;
-      const int k = k0 + (e - r * xv) * R::kVec;
-      const bool ok = row0 + r < n && k < d;
-      cp_async::copy16(xs + r * R::kXPitch + k - k0,
-                       ok ? x + (row0 + r) * d + k : x, ok);
-    }
-    constexpr int av = kCols / R::kVec;
-    for (int e = t; e < kKC * av; e += kThreads) {
-      const int j = e / av;
-      const int c = (e - j * av) * R::kVec;
-      const bool ok = k0 + j < d && c0 + c < m;
-      cp_async::copy16(as + j * kCols + c,
-                       ok ? a + static_cast<int64_t>(k0 + j) * m + c0 + c
-                          : a, ok);
-    }
-  } else {
-    for (int e = t; e < kRows * kKC; e += kThreads) {
-      const int r = e / kKC;
-      const int k = k0 + e - r * kKC;
-      xs[r * R::kXPitch + k - k0] =
-          row0 + r < n && k < d ? x[(row0 + r) * d + k] : T(0);
-    }
-    for (int e = t; e < kKC * kCols; e += kThreads) {
-      const int j = e / kCols;
-      const int c = e - j * kCols;
-      as[e] = k0 + j < d && c0 + c < m
-                  ? a[static_cast<int64_t>(k0 + j) * m + c0 + c] : T(0);
-    }
-  }
-}
-
-// acc[i][u] = fma(x[tr + 32 i, k], a[k, col(u)], acc[i][u]) for the
-// chunk's features k = 0 .. w-1, in order.
-template <typename T, int kTR>
-__device__ __forceinline__ void step4(const T* xs, const T* as, int k,
-                                      int tr, int tc,
-                                      float (&acc)[kTR][kTC]) {
-  constexpr int P = Ring<T, kTR>::kXPitch;
-  float av[4][kTC];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const float4 lo = load4(as + (k + kk) * kCols + 4 * tc);
-    const float4 hi = load4(as + (k + kk) * kCols + 32 + 4 * tc);
-    av[kk][0] = lo.x; av[kk][1] = lo.y; av[kk][2] = lo.z; av[kk][3] = lo.w;
-    av[kk][4] = hi.x; av[kk][5] = hi.y; av[kk][6] = hi.z; av[kk][7] = hi.w;
-  }
-#pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const float4 xv = load4(xs + (tr + kRowStep * i) * P + k);
-    const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int u = 0; u < kTC; ++u)
-        acc[i][u] = __fmaf_rn(xr[kk], av[kk][u], acc[i][u]);
-    }
-  }
-}
-
-template <typename T, int kTR>
-__device__ __forceinline__ void step1(const T* xs, const T* as, int k,
-                                      int tr, int tc,
-                                      float (&acc)[kTR][kTC]) {
-  constexpr int P = Ring<T, kTR>::kXPitch;
-  float av[kTC];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    av[u] = widen(as[k * kCols + 4 * tc + u]);
-    av[4 + u] = widen(as[k * kCols + 32 + 4 * tc + u]);
-  }
-#pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const float xr = widen(xs[(tr + kRowStep * i) * P + k]);
-#pragma unroll
-    for (int u = 0; u < kTC; ++u) acc[i][u] = __fmaf_rn(xr, av[u], acc[i][u]);
-  }
-}
+using project_tile::kCols;
+using project_tile::kRowStep;
+using project_tile::kTC;
+using project_tile::kThreads;
+using project_tile::Ring;
 
 // kTR rows a thread: 16 (128 accumulators, one block an SM) for large n,
 // 4 (three blocks an SM) where 512-row blocks would leave the last wave
@@ -200,40 +79,8 @@ lsh_project_kernel(const T* __restrict__ x, const T* __restrict__ a,
   const int tr = threadIdx.x / kTC;
   const int tc = threadIdx.x % kTC;
   float acc[kTR][kTC];
-#pragma unroll
-  for (int i = 0; i < kTR; ++i)
-#pragma unroll
-    for (int u = 0; u < kTC; ++u) acc[i][u] = 0.f;
-
-  const int nchunks = (d + kKC - 1) / kKC;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nchunks)
-      stage<T, kTR>(ring + s * R::kStageElems, x, a, n, d, m, row0, c0,
-                    s * kKC, vec != 0);
-    cp_async::commit();
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async::wait<kStages - 2>();       // this thread's copies of chunk c
-    __syncthreads();                     // everyone's; chunk c-1 is done
-    const int next = c + kStages - 1;
-    if (next < nchunks)
-      stage<T, kTR>(ring + (next % kStages) * R::kStageElems, x, a, n, d, m,
-                    row0, c0, next * kKC, vec != 0);
-    cp_async::commit();
-    const T* xs = ring + (c % kStages) * R::kStageElems;
-    const T* as = xs + R::kXElems;
-    const int w = min(kKC, d - c * kKC);
-    if (w == kKC) {
-#pragma unroll
-      for (int k = 0; k < kKC; k += 4) step4<T, kTR>(xs, as, k, tr, tc, acc);
-    } else {
-      int k = 0;
-      for (; k + 4 <= w; k += 4) step4<T, kTR>(xs, as, k, tr, tc, acc);
-      for (; k < w; ++k) step1<T, kTR>(xs, as, k, tr, tc, acc);
-    }
-  }
-  cp_async::wait<0>();
+  project_tile::project<T, kTR>(ring, {x, a, n, d, m, m}, row0, c0,
+                                vec != 0, acc);
 
   const bool vec_out = m % 4 == 0;
 #pragma unroll
@@ -257,16 +104,12 @@ lsh_project_kernel(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T, int kTR>
 int launch_rows(const T* x, const T* a, float* out, int64_t n, int d, int m,
                 cudaStream_t stream) {
   using R = Ring<T, kTR>;
-  const int vec = d % R::kVec == 0 && m % R::kVec == 0 && aligned16(x) &&
-                  aligned16(a);
+  const int vec = d % R::kVec == 0 && m % R::kVec == 0 &&
+                  project_tile::aligned16(x) && project_tile::aligned16(a);
   const int64_t row_tiles = (n + R::kRows - 1) / R::kRows;
   if (row_tiles > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);

@@ -57,8 +57,10 @@
 //      Features past d are zeros (a multiple of 8 is computed).  |q|^2 and
 //      |p|^2 stay on the CUDA cores, fmaf in feature order, as before.
 //      Staging: queries and points arrive kDC features at a time through
-//      a ring of cp.async stages (16-byte .cg copies where d is a multiple
-//      of 4, else 4-byte copies), so the loads of the next chunk overlap
+//      a ring of cp.async stages (16-byte .cg copies where the rows' pitch
+//      is a multiple of 4 floats, the last copy of a row zero-filled past
+//      d, else 4-byte copies: the decode index stores its d = 129 rows at
+//      a pitch of 132 for this), so the loads of the next chunk overlap
 //      the mmas of this one: 32 features and 2 stages at kCols = 2, 16 and
 //      3 at kCols = 4, 16 and 2 at kCols = 8 (two blocks an SM, 63-87 KB of
 //      shared memory); shared memory does not grow with d, and any d runs.
@@ -150,14 +152,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 
 // Stage features [k0, k0 + kDC) of the tile's points (the columns whose
 // col_on entry is set) and of the pass's queries into one ring slot, kW
-// floats a copy (4: 16-byte copies, rows 16-byte aligned; 1: 4-byte
-// copies), zeros past d.  Rows past np or nq are left as they are: a row
-// of the product depends only on its own row of each operand, and those
-// rows' results are never stored.
-template <int kCols, int kW>
+// floats a copy (4: 16-byte copies, rows ldp and ldq floats apart, both
+// multiples of 4, with kTail the last copy of a row zero-filled past d
+// when d is not a multiple of 4; 1: 4-byte copies), zeros past d.  Rows
+// past np or nq are left as they are: a row of the product depends only on
+// its own row of each operand, and those rows' results are never stored.
+template <int kCols, int kW, bool kTail>
 __device__ __forceinline__ void stage(float* slot, const float* pts,
                                       const float* qs, int np, int nq, int d,
-                                      int k0, const int* col_on) {
+                                      int ldp, int ldq, int k0,
+                                      const int* col_on) {
   using T = Tile<kCols>;
   constexpr int kPerRow = T::kDC / kW;                  // copies a row
   for (int e = threadIdx.x; e < (T::kP + T::kQP) * kPerRow; e += kThreads) {
@@ -169,18 +173,28 @@ __device__ __forceinline__ void stage(float* slot, const float* pts,
     float* dst = slot + r * T::kPitch + k - k0;
     const float* src = point ? pts : qs;
     const bool ok = k < d;
-    if (ok) src += static_cast<int64_t>(j) * d + k;
-    if constexpr (kW == 4) cp_async::copy16(dst, src, ok);
+    if (ok) src += static_cast<int64_t>(j) * (point ? ldp : ldq) + k;
+    if constexpr (kW == 4 && kTail)
+      cp_async::copy16_part(dst, src, ok ? 4 * min(d - k, 4) : 0);
+    else if constexpr (kW == 4)
+      cp_async::copy16(dst, src, ok);
     else cp_async::copy4(dst, src, ok);
   }
 }
 
+// vec: 0 4-byte copies, 1 16-byte copies (d a multiple of 4), 2 16-byte
+// copies with a zero-filled tail.
 template <int kCols>
 __device__ __forceinline__ void stage(float* slot, const float* pts,
                                       const float* qs, int np, int nq, int d,
-                                      int k0, bool vec, const int* col_on) {
-  if (vec) stage<kCols, 4>(slot, pts, qs, np, nq, d, k0, col_on);
-  else stage<kCols, 1>(slot, pts, qs, np, nq, d, k0, col_on);
+                                      int ldp, int ldq, int k0, int vec,
+                                      const int* col_on) {
+  if (vec == 2)
+    stage<kCols, 4, true>(slot, pts, qs, np, nq, d, ldp, ldq, k0, col_on);
+  else if (vec == 1)
+    stage<kCols, 4, false>(slot, pts, qs, np, nq, d, ldp, ldq, k0, col_on);
+  else
+    stage<kCols, 1, false>(slot, pts, qs, np, nq, d, ldp, ldq, k0, col_on);
 }
 
 // Admission, the first launch: LB(l, i, leaf) <= r_eff[l, i] for every
@@ -263,13 +277,14 @@ __global__ void __launch_bounds__(kAdmThreads) admit_kernel(
 // instance compiles without the head digit and the head offsets.
 template <bool kHeads, int kCols>
 __global__ void __launch_bounds__(kThreads, 2) range_rerank_kernel(
-    const float* __restrict__ q,            // (B, d)
+    const float* __restrict__ q,            // (B, d), rows ldq apart
     const uint8_t* __restrict__ admit,      // (L, nl, B)
-    const float* __restrict__ points,       // (L, nl*ls, d)
+    const float* __restrict__ points,       // (L, nl*ls, d), rows ldp apart
     const uint8_t* __restrict__ point_valid,  // (L, nl*ls)
     const uint8_t* __restrict__ live,       // (L, nl*ls)
     float* __restrict__ out,                // (L, B, nl*ls)
-    int L, int B, int d, int nl, int ls, int64_t n_ptiles, int vec) {
+    int L, int B, int d, int nl, int ls, int ldq, int ldp, int64_t n_ptiles,
+    int vec) {
   using T = Tile<kCols>;
   constexpr int kP = T::kP;
   constexpr int kQP = T::kQP;
@@ -292,9 +307,9 @@ __global__ void __launch_bounds__(kThreads, 2) range_rerank_kernel(
   const int64_t npts = static_cast<int64_t>(nl) * ls;
   if constexpr (kHeads) {             // head h's arrays
     const int64_t h = tree / L;
-    q += h * B * d;
+    q += h * B * ldq;
     admit += h * L * nl * B;
-    points += h * L * npts * d;
+    points += h * L * npts * ldp;
     point_valid += h * L * npts;
     live += h * L * npts;
     out += h * L * B * npts;
@@ -314,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, 2) range_rerank_kernel(
 
   const int leaf0 = static_cast<int>(p0 / ls);
   const int n_tile_leaves = static_cast<int>((p0 + np - 1) / ls) - leaf0 + 1;
-  const float* pts = points + (static_cast<int64_t>(l) * npts + p0) * d;
+  const float* pts = points + (static_cast<int64_t>(l) * npts + p0) * ldp;
   const uint8_t* adm = admit + (static_cast<int64_t>(l) * nl + leaf0) * B;
   float* out_l = out + static_cast<int64_t>(l) * B * npts + p0;
   const int o0 = static_cast<int>(p0 - static_cast<int64_t>(leaf0) * ls);
@@ -366,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 2) range_rerank_kernel(
 #pragma unroll
         for (int u = 0; u < 4; ++u) acc[s][j][u] = 0.f;
     if (block_any) {
-      const float* qs = q + static_cast<int64_t>(qp0) * d;
+      const float* qs = q + static_cast<int64_t>(qp0) * ldq;
       float sums[T::kSumRows];
 #pragma unroll
       for (int i = 0; i < T::kSumRows; ++i) sums[i] = 0.f;
@@ -374,8 +389,8 @@ __global__ void __launch_bounds__(kThreads, 2) range_rerank_kernel(
 #pragma unroll
       for (int s = 0; s < kStages - 1; ++s) {
         if (s < nchunks)
-          stage<kCols>(ring + s * T::kStageFloats, pts, qs, np, nq, d,
-                       s * kDC, vec != 0, col_on);
+          stage<kCols>(ring + s * T::kStageFloats, pts, qs, np, nq, d, ldp,
+                       ldq, s * kDC, vec, col_on);
         cp_async::commit();
       }
       for (int c = 0; c < nchunks; ++c) {
@@ -384,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 2) range_rerank_kernel(
         const int next = c + kStages - 1;
         if (next < nchunks)
           stage<kCols>(ring + (next % kStages) * T::kStageFloats, pts, qs,
-                       np, nq, d, next * kDC, vec != 0, col_on);
+                       np, nq, d, ldp, ldq, next * kDC, vec, col_on);
         cp_async::commit();
         const float* ps = ring + (c % kStages) * T::kStageFloats;
         const float* qd = ps + kP * kPitch;
@@ -515,7 +530,8 @@ bool aligned16(const void* p) {
 template <bool kHeads, int kCols>
 int launch_c(const float* q, const uint8_t* admit, const float* points,
              const uint8_t* point_valid, const uint8_t* live, float* out,
-             int H, int L, int B, int d, int nl, int ls, cudaStream_t stream) {
+             int H, int L, int B, int d, int nl, int ls, int ldq, int ldp,
+             cudaStream_t stream) {
   using T = Tile<kCols>;
   const int64_t npts = static_cast<int64_t>(nl) * ls;
   const int64_t n_ptiles = (npts + T::kP - 1) / T::kP;
@@ -528,13 +544,14 @@ int launch_c(const float* q, const uint8_t* admit, const float* points,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  // 16-byte copies need rows of a multiple of 4 floats (the head strides
-  // then keep the bases' alignment).
-  const int vec = d % 4 == 0 && aligned16(q) && aligned16(points);
+  // 16-byte copies need row pitches of a multiple of 4 floats (the head
+  // strides then keep the bases' alignment), whatever d is.
+  const int vec = ldq % 4 == 0 && ldp % 4 == 0 && aligned16(q) &&
+                  aligned16(points) ? (d % 4 == 0 ? 1 : 2) : 0;
   range_rerank_kernel<kHeads, kCols><<<static_cast<unsigned>(blocks),
                                        kThreads, smem, stream>>>(
-      q, admit, points, point_valid, live, out, L, B, d, nl, ls, n_ptiles,
-      vec);
+      q, admit, points, point_valid, live, out, L, B, d, nl, ls, ldq, ldp,
+      n_ptiles, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,7 +561,7 @@ int launch(const float* q, const float* q_proj, const float* r_eff,
            const uint8_t* leaf_valid, const float* bp, const float* points,
            const uint8_t* point_valid, const uint8_t* live, float* out,
            uint8_t* admit, int H, int L, int B, int d, int nl, int K, int E,
-           int ls, void* stream_ptr) {
+           int ls, int ldq, int ldp, void* stream_ptr) {
   if (H == 0 || L == 0 || B == 0 || static_cast<int64_t>(nl) * ls == 0)
     return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -573,29 +590,30 @@ int launch(const float* q, const float* q_proj, const float* r_eff,
                    static_cast<int64_t>(nl) * ls)) {
     case 8:
       return launch_c<kHeads, 8>(q, admit, points, point_valid, live, out, H,
-                                 L, B, d, nl, ls, stream);
+                                 L, B, d, nl, ls, ldq, ldp, stream);
     case 4:
       return launch_c<kHeads, 4>(q, admit, points, point_valid, live, out, H,
-                                 L, B, d, nl, ls, stream);
+                                 L, B, d, nl, ls, ldq, ldp, stream);
     default:
       return launch_c<kHeads, 2>(q, admit, points, point_valid, live, out, H,
-                                 L, B, d, nl, ls, stream);
+                                 L, B, d, nl, ls, ldq, ldp, stream);
   }
 }
 
 }  // namespace
 
-// One forest: arrays as the kernels' comments give them; admit is scratch
-// of L * nl * B bytes.
+// One forest: arrays as the kernels' comments give them, the rows of q
+// and points ldq and ldp floats apart (>= d); admit is scratch of
+// L * nl * B bytes.
 extern "C" int range_rerank_launch(
     const float* q, const float* q_proj, const float* r_eff,
     const int32_t* leaf_lo, const int32_t* leaf_hi, const uint8_t* leaf_valid,
     const float* bp, const float* points, const uint8_t* point_valid,
     const uint8_t* live, float* out, uint8_t* admit, int L, int B, int d,
-    int nl, int K, int E, int ls, void* stream) {
+    int nl, int K, int E, int ls, int ldq, int ldp, void* stream) {
   return launch<false>(q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, bp,
                        points, point_valid, live, out, admit, 1, L, B, d, nl,
-                       K, E, ls, stream);
+                       K, E, ls, ldq, ldp, stream);
 }
 
 // H forests in one launch pair: every array with a leading head axis H;
@@ -605,10 +623,10 @@ extern "C" int range_rerank_heads_launch(
     const int32_t* leaf_lo, const int32_t* leaf_hi, const uint8_t* leaf_valid,
     const float* bp, const float* points, const uint8_t* point_valid,
     const uint8_t* live, float* out, uint8_t* admit, int H, int L, int B,
-    int d, int nl, int K, int E, int ls, void* stream) {
+    int d, int nl, int K, int E, int ls, int ldq, int ldp, void* stream) {
   return launch<true>(q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, bp,
                       points, point_valid, live, out, admit, H, L, B, d, nl,
-                      K, E, ls, stream);
+                      K, E, ls, ldq, ldp, stream);
 }
 
 extern "C" const char* range_rerank_error_string(int code) {

@@ -11,6 +11,13 @@ past B and leaves past nl do not exist for it, which is what the
 reference's padded lanes (r_eff = -1) and padded leaves (invalid) amount to.
 ``range_rerank_heads`` runs the same kernel body over H forests at once (the
 KV-decode retrieval: one forest per (batch, kv-head)).
+
+Rows of queries and points are read with 16-byte copies where their row
+pitch is a multiple of 4 floats.  A caller whose d is not (the decode
+index's augmented keys, d = 129) stores its points once with
+:func:`pad_rows` and passes the (..., d) view: the wrapper keeps the
+pitch, the kernel reads no padding (it zero-fills past d), and every
+output equals that of the unpadded rows bit for bit.
 """
 
 from __future__ import annotations
@@ -29,11 +36,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("range_rerank")
     lib.range_rerank_launch.restype = ctypes.c_int
     lib.range_rerank_launch.argtypes = ([ctypes.c_void_p] * 12
-                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_int] * 9
                                         + [ctypes.c_void_p])
     lib.range_rerank_heads_launch.restype = ctypes.c_int
     lib.range_rerank_heads_launch.argtypes = ([ctypes.c_void_p] * 12
-                                              + [ctypes.c_int] * 8
+                                              + [ctypes.c_int] * 10
                                               + [ctypes.c_void_p])
     return lib
 
@@ -45,15 +52,49 @@ def _as_bytes(mask: torch.Tensor) -> torch.Tensor:
     return mask.contiguous()
 
 
+def row_pitch(d: int) -> int:
+    """Floats from one stored row to the next for rows of d features: d
+    rounded up to a multiple of 4, so that the kernel stages every row with
+    16-byte copies."""
+    return -(-d // 4) * 4
+
+
+def pad_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., d) as a view of the first d columns of a zero-padded
+    copy whose rows are :func:`row_pitch` (d) floats apart; ``t`` itself
+    where d is a multiple of 4 already.  Every reader sees the same (...,
+    d) values; the kernel reads the rows with 16-byte copies."""
+    d = t.shape[-1]
+    if d == row_pitch(d):
+        return t
+    return torch.nn.functional.pad(t, (0, row_pitch(d) - d))[..., :d]
+
+
+def _rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(t, pitch) where ``t`` (..., rows, d) is dense apart from a row
+    pitch >= d (a view of the first d columns of wider rows), else
+    (t.contiguous(), d)."""
+    pitch = t.stride(-2) if t.ndim >= 2 else t.shape[-1]
+    dense = t.stride(-1) == 1 and pitch >= t.shape[-1]
+    step = pitch
+    for size, stride in zip(reversed(t.shape[:-1]), reversed(t.stride()[:-1])):
+        dense = dense and (size == 1 or stride == step)
+        step *= size
+    return (t, pitch) if dense else (t.contiguous(), t.shape[-1])
+
+
 _NAMES = ("q", "q_proj", "r_eff", "leaf_lo", "leaf_hi", "leaf_valid",
           "breakpoints", "points", "point_valid", "live")
 
 
 def _prepare(name: str, tensors: tuple, lead: tuple, leaf_size: int
-             ) -> tuple[tuple, tuple[int, ...]]:
+             ) -> tuple[tuple, tuple[int, ...], tuple[int, int]]:
     """Check one launch's inputs (every array with the leading axes
     ``lead``: () for one forest, (H,) for H) and lay them out as the
-    kernel reads them.  Returns (arguments, (L, B, d, nl, K, E))."""
+    kernel reads them: q and points keep a row pitch wider than d (see
+    :func:`pad_rows`), and q's rows are padded to a multiple of 4 floats
+    where they are not.  Returns (arguments, (L, B, d, nl, K, E),
+    (q's row pitch, points' row pitch))."""
     q, q_proj = tensors[0], tensors[1]
     dev = q.device
     if not (q.is_cuda and all(t.device == dev for t in tensors)):
@@ -76,16 +117,20 @@ def _prepare(name: str, tensors: tuple, lead: tuple, leaf_size: int
                              f"expected {lead + shape}")
     (q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid, breakpoints, points,
      point_valid, live) = tensors
-    args = (q.contiguous(), q_proj.contiguous(), r_eff.contiguous(),
+    q, ldq = _rows(q)
+    if ldq % 4:
+        q, ldq = pad_rows(q), row_pitch(d)
+    points, ldp = _rows(points)
+    args = (q, q_proj.contiguous(), r_eff.contiguous(),
             leaf_lo.to(torch.int32).contiguous(),
             leaf_hi.to(torch.int32).contiguous(), _as_bytes(leaf_valid),
-            breakpoints.contiguous(), points.contiguous(),
-            _as_bytes(point_valid), _as_bytes(live))
-    return args, (L, B, d, nl, K, E)
+            breakpoints.contiguous(), points, _as_bytes(point_valid),
+            _as_bytes(live))
+    return args, (L, B, d, nl, K, E), (ldq, ldp)
 
 
 def _launch(fn_name: str, args: tuple, out: torch.Tensor,
-            sizes: tuple[int, ...]) -> None:
+            sizes: tuple[int, ...], pitches: tuple[int, int]) -> None:
     """Run the two launches (admission, then rerank) on out's device, with
     the admission table, one byte a (head, tree, leaf, query), as
     scratch."""
@@ -97,7 +142,7 @@ def _launch(fn_name: str, args: tuple, out: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, fn_name)(*(a.data_ptr() for a in args),
                                      out.data_ptr(), admit.data_ptr(),
-                                     *sizes, stream)
+                                     *sizes, *pitches, stream)
     _build.check(lib, "range_rerank", code)
 
 
@@ -112,14 +157,14 @@ def range_rerank(q: torch.Tensor, q_proj: torch.Tensor, r_eff: torch.Tensor,
     point_valid, live (L, nl*leaf_size).  All on one CUDA device; float
     inputs float32.  Returns (L, B, nl*leaf_size) f32.  Launches the kernel
     once and counts it in ``range_rerank.launches``."""
-    args, (L, B, d, nl, K, E) = _prepare(
+    args, (L, B, d, nl, K, E), pitches = _prepare(
         "range_rerank", (q, q_proj, r_eff, leaf_lo, leaf_hi, leaf_valid,
                          breakpoints, points, point_valid, live), (),
         leaf_size)
     out = torch.empty((L, B, nl * leaf_size), dtype=torch.float32,
                       device=q.device)
     _launch("range_rerank_launch", args, out,
-            (L, B, d, nl, K, E, leaf_size))
+            (L, B, d, nl, K, E, leaf_size), pitches)
     range_rerank.launches += 1
     return out
 
@@ -139,14 +184,14 @@ def range_rerank_heads(q: torch.Tensor, q_proj: torch.Tensor,
     :func:`range_rerank` on head h's arrays bit for bit.  Counts the launch
     in ``range_rerank_heads.launches``."""
     H = q.shape[0]
-    args, (L, B, d, nl, K, E) = _prepare(
+    args, (L, B, d, nl, K, E), pitches = _prepare(
         "range_rerank_heads", (q, q_proj, r_eff, leaf_lo, leaf_hi,
                                leaf_valid, breakpoints, points, point_valid,
                                live), (H,), leaf_size)
     out = torch.empty((H, L, B, nl * leaf_size), dtype=torch.float32,
                       device=q.device)
     _launch("range_rerank_heads_launch", args, out,
-            (H, L, B, d, nl, K, E, leaf_size))
+            (H, L, B, d, nl, K, E, leaf_size), pitches)
     range_rerank_heads.launches += 1
     return out
 

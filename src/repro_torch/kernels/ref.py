@@ -29,12 +29,16 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
     proj (n, L*K) f32, breakpoints (L*K, Nr+1) -> (proj_t (L, n, K) f32,
     codes_t (L, n, K) int32, key_hi (L, n), key_lo (L, n)): each key word is
     a uint32 value held in int64.  Codes are #(inner edges <= x), clipped
-    to [0, Nr-1]; key words are ``core.detree.interleave_keys`` per tree.
+    to [0, Nr-1], and 0 for a NaN coordinate, which no comparison admits
+    (the TPU kernel's compare-accumulate ``proj >= edge``; searchsorted
+    would put it past every edge); key words are
+    ``core.detree.interleave_keys`` per tree.
     """
     from repro_torch.core.detree import interleave_keys
     from repro_torch.core.encoding import encode
     n = proj.shape[0]
     codes = encode(proj, breakpoints)                          # (n, L*K)
+    codes = torch.where(torch.isnan(proj), 0, codes)
     proj_t = proj.reshape(n, L, K).permute(1, 0, 2).contiguous()
     codes_t = codes.reshape(n, L, K).permute(1, 0, 2).contiguous()
     key_hi, key_lo = interleave_keys(codes_t, K)
@@ -43,12 +47,9 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
 
 def project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """x (n, d) @ a (d, D) in f32, summed over d in index order with one
-    rounded product and one rounded sum a step, as the CUDA
-    ``project_encode_pack`` kernel does (``__fadd_rn(acc, __fmul_rn(x,
-    a))``).  One ulp of a projection can flip a code at an edge, so the
-    kernel and this version must agree bit for bit, not within a
-    tolerance.  (``lsh_project`` sums with one FMA a step instead: see
-    :func:`lsh_project`.)"""
+    rounded product and one rounded sum a step (``__fadd_rn(acc,
+    __fmul_rn(x, a))``).  No kernel sums so any more: ``lsh_project`` and
+    ``project_encode_pack`` take one FMA a step (:func:`lsh_project`)."""
     acc = torch.zeros((x.shape[0], a.shape[1]), dtype=torch.float32,
                       device=x.device)
     for j in range(x.shape[1]):                # fixed order, no contraction
@@ -86,8 +87,8 @@ def lsh_project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     (``acc = fma(x[:, j], a[j], acc)`` for j = 0..d-1), as the CUDA
     ``lsh_project`` kernel sums (``__fmaf_rn``), so the two agree bit for
     bit.  bf16 inputs widen to f32 exactly; their products are exact in
-    f32, so for them this equals :func:`project` bit for bit.
-    :func:`project` itself (``project_encode_pack``'s sum) is unchanged."""
+    f32, so for them this equals :func:`project` bit for bit.  The CUDA
+    ``project_encode_pack`` kernel projects with the same sum."""
     xd = x.to(torch.float64)
     ad = a.to(torch.float64)
     acc = torch.zeros((x.shape[0], a.shape[1]), dtype=torch.float32,
@@ -110,9 +111,10 @@ def project_encode_pack(x: torch.Tensor, a: torch.Tensor,
                         breakpoints: torch.Tensor, *, K: int, L: int
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
-    """The seal's fused step: :func:`project` then :func:`encode_pack`.
-    x (n, d), a (d, L*K), breakpoints (L*K, Nr+1) -> encode_pack's outputs."""
-    return encode_pack(project(x.to(torch.float32), a.to(torch.float32)),
+    """The seal's fused step: :func:`lsh_project` (one FMA a feature in d
+    order, as the CUDA kernel sums) then :func:`encode_pack`.  x (n, d),
+    a (d, L*K), breakpoints (L*K, Nr+1) -> encode_pack's outputs."""
+    return encode_pack(lsh_project(x.to(torch.float32), a.to(torch.float32)),
                        breakpoints, K=K, L=L)
 
 

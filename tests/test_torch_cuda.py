@@ -30,10 +30,11 @@ def cuda():
 
 @pytest.mark.parametrize("n,K,L,Nr", [(3001, 16, 4, 256), (3001, 4, 16, 256),
                                       (777, 5, 3, 64), (40, 33, 1, 256),
-                                      (3001, 16, 128, 256)])
+                                      (3001, 16, 128, 256),
+                                      (3001, 8, 8, 256)])
 def test_encode_pack_kernel_bit_identical(cuda, n, K, L, Nr):
-    """L*K = 2,048 is past one block's tile (1,451 dims): the wrapper
-    launches once per group of trees and counts one launch."""
+    """Any K and L*K, L*K = 2,048 included: one launch (a block a tree),
+    counted once."""
     rng = np.random.default_rng(K)
     proj = torch.tensor(rng.standard_normal((n, L * K)) * 2.0,
                         dtype=torch.float32, device=cuda)
@@ -43,6 +44,54 @@ def test_encode_pack_kernel_bit_identical(cuda, n, K, L, Nr):
     assert build_fused.encode_pack.launches == before + 1
     for g, w in zip(got, ref.encode_pack(proj, bp, K=K, L=L)):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _edge_case_proj(rng, n, D, Nr):
+    """Breakpoints with runs of equal inner edges, and coordinates on the
+    edges, at +-inf and NaN beside random ones."""
+    bp = np.sort(rng.standard_normal((D, Nr + 1)).astype(np.float32) * 2,
+                 axis=1, kind="stable")
+    if Nr >= 4:                          # a run of equal inner edges
+        mid = Nr // 2
+        bp[:, mid:mid + 3] = bp[:, mid, None]
+    proj = (rng.standard_normal((n, D)) * 2).astype(np.float32)
+    proj[0] = bp[:, 1]                   # on the first inner edge
+    proj[1] = bp[:, Nr // 2]             # on a run
+    proj[2] = bp[:, Nr - 1]              # on the last inner edge
+    proj[3] = bp[:, 0]                   # on the outer edge
+    proj[4, ::2], proj[4, 1::2] = np.inf, -np.inf
+    proj[5, ::3] = np.nan
+    rows, cols = rng.integers(6, n, size=n), rng.integers(0, D, size=n)
+    proj[rows, cols] = bp[cols, rng.integers(1, Nr, size=n)]   # on edges
+    return proj, bp
+
+
+@pytest.mark.parametrize("n,K,L,Nr", [(1000, 1, 3, 2), (1000, 4, 4, 3),
+                                      (777, 16, 4, 64), (3001, 4, 16, 256),
+                                      (513, 16, 2, 256), (300, 16, 128, 256),
+                                      (300, 1, 70, 64), (64, 5, 13, 256),
+                                      (2000, 8, 6, 256), (1000, 2, 5, 16)])
+def test_encode_pack_kernel_edge_cases(cuda, n, K, L, Nr):
+    """The Eytzinger edge search and the ballot key pack at the edges of
+    their contract: runs of equal edges, coordinates equal to an edge, +inf
+    (the last code, never the table's padding), -inf, NaN (code 0), Nr from
+    2 to 256, K = 1, 4, 16 and a generic K, L*K = 2,048: all four outputs
+    equal to the plain version bit for bit."""
+    rng = np.random.default_rng(n + K + L + Nr)
+    proj, bp = _edge_case_proj(rng, n, L * K, Nr)
+    proj_c = torch.tensor(proj, device=cuda)
+    bp_c = torch.tensor(bp, device=cuda)
+    got = ops.encode_pack(proj_c, bp_c, K=K, L=L)
+    want = ref.encode_pack(proj_c, bp_c, K=K, L=L)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        if g.dtype == torch.float32:         # NaN != NaN: compare the bits
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    codes = got[1].permute(1, 0, 2).reshape(n, L * K)
+    assert bool((codes[5, ::3] == 0).all())               # NaN
+    assert bool((codes[4, ::2] == Nr - 1).all())          # +inf
+    assert bool((codes[4, 1::2] == 0).all())              # -inf
 
 
 def _forest_inputs(cuda, n, B, K, L, ls, d, seed):
@@ -304,17 +353,20 @@ def test_vmap_wrappers_refuse_bad_inputs(cuda):
                                         (5, 3, 2, 2, 16),
                                         (1000, 960, 8, 2, 128),
                                         (4096, 2048, 16, 4, 256),
-                                        (300, 300, 16, 100, 64)])
+                                        (300, 300, 16, 100, 64),
+                                        (2000, 257, 16, 4, 256),
+                                        (700, 17, 16, 4, 256),
+                                        (100, 40, 100, 2, 64)])
 def test_project_encode_pack_kernel_bit_identical(cuda, n, d, K, L, Nr):
-    """Ragged row counts, d off the float4 width, a wide d (GIST's 960)
-    and d = 2,048 (eight 256-column chunks of x), and L*K = 1,600 (two
-    launches, one per group of trees): every output equal to the plain
-    version bit for bit (the projection is summed in the same d order,
-    each step rounded alike)."""
+    """Ragged row counts, d off the float4 width (3, 17, 33, 257), a wide
+    d (GIST's 960, 2,048), L*K = 1,600 (25 groups of trees on grid.y) and
+    K = 100 (one tree a group, projected 64 columns at a time): every
+    output equal to the plain version bit for bit (the projection is one
+    FMA a feature in the same d order)."""
     gen = torch.Generator(cuda).manual_seed(n + d)
     x = torch.randn((n, d), generator=gen, device=cuda)
     a = torch.randn((d, L * K), generator=gen, device=cuda)
-    bp = encoding.full_sort(ref.project(x, a), Nr)
+    bp = encoding.full_sort(ref.lsh_project(x, a), Nr)
     before = build_fused.project_encode_pack.launches
     got = ops.project_encode_pack(x, a, bp, K=K, L=L)
     assert build_fused.project_encode_pack.launches == before + 1
@@ -667,8 +719,9 @@ def test_range_rerank_heads_kernel_matches_plain(cuda, d):
     """H = 5 forests of the decode shape (d = 129, g = 2 lanes a head, a
     done lane, tombstones) and of a width past the old whole-row query
     tile (d = 1,537): the +inf mask of the plain version, finite entries
-    within the range_rerank test's tolerance, and every head equal bit for
-    bit to a single-forest launch on that head's arrays."""
+    within the range_rerank test's tolerance, every head equal bit for
+    bit to a single-forest launch on that head's arrays, and the same rows
+    stored padded (row pitch a multiple of 4) equal to the dense ones."""
     H, g, L, K, ls, n = 5, 2, 4, 4, 32, 3000
     parts = [_forest_inputs(cuda, n, g, K, L, ls, d, seed=50 + h)
              for h in range(H)]
@@ -703,6 +756,18 @@ def test_range_rerank_heads_kernel_matches_plain(cuda, d):
             cat["leaf_hi"][h], cat["leaf_valid"][h], cat["breakpoints"][h],
             pts[h], cat["valid"][h], live[h], leaf_size=ls)
         assert torch.equal(got[h], single), h
+    # The rows stored at a pitch of a multiple of 4 floats (16-byte copies,
+    # as the decode index stores them): every output bit for bit the same.
+    padded = list(args)
+    padded[0], padded[7] = rr.pad_rows(q), rr.pad_rows(pts)
+    assert padded[7].stride(-2) == rr.row_pitch(d) > d
+    assert torch.equal(ops.range_rerank_heads(*padded, leaf_size=ls), got)
+    single = rr.range_rerank(padded[0][0], q_proj[0], r[0].expand(L, g),
+                             cat["leaf_lo"][0], cat["leaf_hi"][0],
+                             cat["leaf_valid"][0], cat["breakpoints"][0],
+                             padded[7][0], cat["valid"][0], live[0],
+                             leaf_size=ls)
+    assert torch.equal(single, got[0])
 
 
 def test_lsh_decoder_on_the_card_matches_the_cpu(cuda):

@@ -52,6 +52,7 @@ from repro_torch.decode import (HeadForest, KVCacheIndex, KVSpec,  # noqa: E402
                                 LSHDecoder, sparse_decode_attention)
 from repro_torch.decode import mips as tmips  # noqa: E402
 from repro_torch.kernels import range_rerank as rrk  # noqa: E402
+from repro_torch.kernels.range_rerank import row_pitch  # noqa: E402
 
 B, S, HK, G, DH = 2, 512, 2, 2, 32
 SPEC = dict(m_top=24, delta_capacity=16)
@@ -216,8 +217,47 @@ def test_prefill_with_reference_A_matches(ref_index):
         assert getattr(t.forest, name).dtype == torch.tensor(
             np.asarray(getattr(j.forest, name))).dtype, name
     assert t.n_points == j.n_points == S
-    assert t.index_size_bytes() == j.index_size_bytes()
+    # The port stores each augmented key row at a pitch of a multiple of 4
+    # floats (zeros past d_aug) for the heads kernel's 16-byte copies; its
+    # size is the reference's plus those pad columns.
+    pts = t.forest.points_sorted
+    pad = pts.shape[:-1].numel() * (row_pitch(t.d_aug) - t.d_aug) * 4
+    assert t.index_size_bytes() == j.index_size_bytes() + pad
     assert t.scan_fraction == j.scan_fraction
+
+
+def test_stored_points_keep_an_aligned_pitch(ref_index):
+    """The prefill and each seal store the augmented keys (d_aug = dh + 1)
+    at a row pitch of a multiple of 4 floats, zeros past d_aug, and every
+    reader sees only the first d_aug columns: a retrieval over the padded
+    rows equals one over the same rows stored densely, bit for bit, and
+    ``index_size_bytes`` counts the padding."""
+    j, k, _ = ref_index
+    t = KVCacheIndex.prefill(k, spec=KVSpec(**SPEC), A=np.asarray(j.A),
+                             device="cpu")
+    pitch = row_pitch(t.d_aug)
+    assert pitch % 4 == 0 and pitch > t.d_aug
+    for _ in range(2):
+        pts = t.forest.points_sorted
+        assert pts.shape[-1] == t.d_aug and pts.stride(-2) == pitch
+        full = torch.as_strided(pts, (*pts.shape[:-1], pitch), pts.stride())
+        assert not full[..., t.d_aug:].any()
+        dense = sum(a.numel() * a.element_size() for a in t.forest)
+        pad = pts.shape[:-1].numel() * (pitch - t.d_aug) * 4
+        assert t.index_size_bytes() == (dense + pad
+                                        + t.delta.vecs.nbytes)
+        q = torch.tensor(_query_at(k, 40))
+        assert t.round_inputs(q).q_aug.is_contiguous()   # padded per launch
+        got = t.retrieve(q, r_min=1e6)
+        t.forest = t.forest._replace(points_sorted=pts.contiguous())
+        want = t.retrieve(q, r_min=1e6)
+        t.forest = t.forest._replace(points_sorted=pts)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        new = np.asarray(k[:, :SPEC["delta_capacity"]])     # one seal
+        for step in range(new.shape[1]):
+            t.upsert(torch.tensor(new[:, step]))
+        assert t.seals == _ + 1
 
 
 # ---------------------------------------------------------------------------

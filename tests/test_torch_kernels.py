@@ -197,21 +197,15 @@ def test_flash_attention_split_rule(bh, sq, sk, causal, want):
     assert (n - 1) * per < max(k_end, 1) <= n * per    # every key, once
 
 
-@pytest.mark.parametrize("K,L,spare,want", [
-    (16, 4, 0, [(0, 4)]), (16, 128, 0, [(0, 90), (90, 128)]),
-    (4, 16, 4 * 32 * 128, [(0, 16)]),
-    (16, 128, 4 * 32 * 256, [(0, 77), (77, 128)])])
-def test_encode_kernels_tree_groups(K, L, spare, want):
-    """Trees per launch of encode_pack / project_encode_pack: each group's
-    (32, L_g*K + 1) f32 + u8 tile fits the 232,448 bytes a block has, beside
-    project_encode_pack's staged x chunk (``spare``)."""
+@pytest.mark.parametrize("Nr,want", [(2, 2), (3, 4), (64, 64), (100, 128),
+                                     (256, 256)])
+def test_encode_table_width(Nr, want):
+    """The width P of a dim's Eytzinger edge table, which sizes encode_pack's
+    shared memory and project_encode_pack's table scratch: the power of two
+    >= Nr, whose Nr - 1 inner edges and +inf padding fill a whole tree."""
     from repro_torch.kernels import build_fused as bfk
-    groups = bfk._tree_groups(K, L, spare)
-    assert groups == want
-    for l0, l1 in groups:
-        assert 32 * ((l1 - l0) * K + 1) * 5 + spare <= 232448
-    with pytest.raises(ValueError):
-        bfk._tree_groups(2000, 1, 0)
+    assert bfk._table_width(torch.zeros((3, Nr + 1))) == want
+    assert want >= Nr > want // 2
 
 
 def test_kernel_build_dir_needs_a_source_checkout(tmp_path, monkeypatch):
@@ -375,11 +369,11 @@ def test_lsh_project_plain_bf16_equals_mul_then_add():
 
 
 def test_project_plain_is_mul_then_add():
-    """ref.project, project_encode_pack's plain sum, is unchanged: one
-    rounded f32 product and one rounded f32 sum a step, in d order (numpy
-    f32 arithmetic, which does not contract), and project_encode_pack's
-    plain version projects through it.  On f32 inputs it differs from the
-    FMA chain of ref.lsh_project."""
+    """ref.project is unchanged: one rounded f32 product and one rounded
+    f32 sum a step, in d order (numpy f32 arithmetic, which does not
+    contract).  project_encode_pack's plain version projects through the
+    FMA chain of ref.lsh_project instead, which differs from it on f32
+    inputs."""
     rng = np.random.default_rng(7)
     x = rng.standard_normal((300, 24)).astype(np.float32)
     a = rng.standard_normal((24, 16)).astype(np.float32)
@@ -392,10 +386,67 @@ def test_project_plain_is_mul_then_add():
                                  dtype=torch.float32), dim=1).values
     proj_t = tref.project_encode_pack(torch.tensor(x), torch.tensor(a), bp,
                                       K=4, L=4)[0]
-    assert torch.equal(proj_t, torch.tensor(want).reshape(300, 4, 4)
-                       .permute(1, 0, 2))
-    fma = tref.lsh_project(torch.tensor(x), torch.tensor(a)).numpy()
-    assert (fma != want).any()
+    fma = tref.lsh_project(torch.tensor(x), torch.tensor(a))
+    assert torch.equal(proj_t, fma.reshape(300, 4, 4).permute(1, 0, 2))
+    assert (fma.numpy() != want).any()
+
+
+@pytest.mark.parametrize("n,d,K,L,Nr", [(300, 24, 4, 4, 32),
+                                        (257, 17, 5, 3, 64),
+                                        (128, 130, 16, 2, 256)])
+def test_project_encode_pack_plain_is_encode_of_lsh_project(n, d, K, L, Nr):
+    """The seal's plain version is encode_pack of lsh_project's sum (one
+    FMA a feature in d order), bit for bit: the function the CUDA
+    project_encode_pack kernel computes."""
+    rng = np.random.default_rng(n + d)
+    x = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32)
+    a = torch.tensor(rng.standard_normal((d, L * K)), dtype=torch.float32)
+    bp = torch.sort(torch.tensor(rng.standard_normal((L * K, Nr + 1)) * 4,
+                                 dtype=torch.float32), dim=1).values
+    got = tref.project_encode_pack(x, a, bp, K=K, L=L)
+    want = tref.encode_pack(tref.lsh_project(x, a), bp, K=K, L=L)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_encode_pack_plain_edge_cases_match_reference_kernel():
+    """Runs of equal edges, coordinates on an edge, +-inf and NaN: the
+    plain encode_pack equals the reference's Pallas kernel (interpret
+    mode), whose codes count ``proj >= edge`` -- so a NaN gets code 0, and
+    +inf the last code."""
+    rng = np.random.default_rng(11)
+    K, L, Nr, n = 4, 3, 16, 64
+    bp = np.sort(rng.standard_normal((L * K, Nr + 1)).astype(np.float32),
+                 axis=1, kind="stable")
+    bp[:, 6:10] = bp[:, 6, None]
+    proj = rng.standard_normal((n, L * K)).astype(np.float32)
+    proj[0], proj[1], proj[2] = bp[:, 1], bp[:, 6], bp[:, Nr - 1]
+    proj[3, ::2], proj[3, 1::2] = np.inf, -np.inf
+    proj[4, ::3] = np.nan
+    got = tops.encode_pack(torch.tensor(proj), torch.tensor(bp), K=K, L=L)
+    want = jops.encode_pack(jnp.asarray(proj), jnp.asarray(bp), K=K, L=L,
+                            interpret=True, block_n=64)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(w).astype(np.int64))
+    assert (got[1].permute(1, 0, 2).reshape(n, -1)[4, ::3] == 0).all()
+
+
+def test_pad_rows_keeps_values_and_pitch():
+    """pad_rows stores rows at a pitch of a multiple of 4 floats and shows
+    the first d columns; the range_rerank wrapper keeps such a pitch and
+    lays out any other strided tensor densely."""
+    from repro_torch.kernels import range_rerank as rrk
+    t = torch.arange(2 * 3 * 129, dtype=torch.float32).reshape(2, 3, 129)
+    p = rrk.pad_rows(t)
+    assert torch.equal(p, t) and p.stride() == (3 * 132, 132, 1)
+    assert rrk._rows(p) == (p, 132)
+    aligned = t[..., :128]                      # d a multiple of 4 already
+    assert rrk.pad_rows(aligned) is aligned
+    dense, pitch = rrk._rows(t.transpose(0, 1))
+    assert pitch == 129 and dense.is_contiguous()
+    assert torch.equal(dense, t.transpose(0, 1))
 
 
 @pytest.mark.parametrize("n,D,Nr", [(512, 64, 256), (700, 16, 64),
