@@ -15,7 +15,10 @@ Phases, each printed as one line; any failure exits non-zero:
              instances; FFMA, FMUL and FADD in lsh_project's four (f32
              and bf16, 512- and 128-row blocks; FFMA must be > 0, HMMA 0)
              and in project_encode_pack's nine (FFMA > 0, FMUL, FADD
-             and HMMA 0: the projection is one FMA a feature).
+             and HMMA 0: the projection is one FMA a feature); FFMA, FMUL
+             and FADD in leaf_bounds' four (K = 4, 8, 16, any), a record
+             (IEEE sqrtf has FFMAs of its own; bit-identity holds its
+             sums to no contraction).
   encode_pack  the kernel against its plain PyTorch version at n rows,
              K=16/L=4 and K=4/L=16 (where the low key word is zero), and
              at a decode head's shape (32,768 rows, K=4/L=4, Nr=64, the
@@ -34,7 +37,10 @@ Phases, each printed as one line; any failure exits non-zero:
              main_path_scaled_r_min: the same batch started at the true
              k-NN distance scale / c^2, so that several rounds run.
   leaf_bounds  the kernel against its plain version for the 100 main-path
-             queries over the whole forest: LB and UB bit-identical.
+             queries over the whole forest, and for the first 7 and the
+             first one (the auto engine's widths): LB and UB
+             bit-identical; CUDA-event times at B = 100, 7 and 1, and the
+             wrapper's host time (wrapper_host_ms) at 100 and 1.
   l2_rerank  the kernel against its plain version at the vmap path's shape
              (100 lanes of 1 query x 2,048 candidates gathered from the
              first round, d = 128; f32 and bf16) and at one all-pairs shape
@@ -91,10 +97,13 @@ Phases, each printed as one line; any failure exits non-zero:
              -> 64) and at GIST's width (100,000 x 960 -> 64):
              bit-identical; CUDA-event times, and torch.matmul (TF32 off)
              as a yardstick.
-  encode_bins  the encode kernel against its plain version (searchsorted)
-             on the main path's projections with its index's breakpoints
-             (1M x 64, Nr = 256): bit-identical; torch.searchsorted on the
-             transposed coordinates plus the clamp as a yardstick.
+  encode_bins  the encode kernel against its plain version (searchsorted,
+             NaN coded 0) on the main path's projections with its index's
+             breakpoints (1M x 64, Nr = 256): bit-identical;
+             torch.searchsorted on the transposed coordinates plus the
+             clamp as a yardstick.  encode_bins_edge_cases: equal edges,
+             coordinates on edges, +-inf and NaN at Nr = 100 and 256, D =
+             16, 64, 65 and 200 (several column groups), bit-identical.
   pdet_path  the sharded PDET index at the same shape through
              repro_torch.api.build(IndexSpec(..., project_impl='pallas',
              build_impl='reference', encode_impl='pallas',
@@ -341,39 +350,58 @@ def _q_proj(index, queries):
                                                           2).contiguous()
 
 
-def check_leaf_bounds(torch, index, queries) -> dict:
+def _leaf_bounds_case(torch, index, q_proj) -> dict:
+    """leaf_bounds against its plain version on one batch of projected
+    queries over the whole forest: LB and UB bit-identical; CUDA-event
+    times and the bound."""
     from repro_torch.kernels import leaf_bounds as lbk
     from repro_torch.kernels import ref
     f = index.forest
-    q_proj = _q_proj(index, queries)
     args = (q_proj, f.leaf_lo, f.leaf_hi, f.leaf_valid, f.breakpoints)
     got = lbk.leaf_bounds(*args)
     want = ref.leaf_bounds(*args)
     torch.cuda.synchronize()
+    L, B, K = q_proj.shape
     max_err = 0.0
     for name, g, w in zip(("lb", "ub"), got, want):
         require(g.shape == w.shape and g.dtype == w.dtype,
-                f"leaf_bounds: {name} has another shape or dtype")
+                f"leaf_bounds B={B}: {name} has another shape or dtype")
         fin = torch.isfinite(w)
         require(torch.equal(fin, torch.isfinite(g)),
-                f"leaf_bounds: {name} +inf mask differs")
+                f"leaf_bounds B={B}: {name} +inf mask differs")
         max_err = max(max_err, float((g[fin].double() - w[fin].double())
                                      .abs().max()))
         require(torch.equal(g, w),
-                f"leaf_bounds: {name} is not bit-identical to the plain "
-                f"version (max err {max_err})")
+                f"leaf_bounds B={B}: {name} is not bit-identical to the "
+                f"plain version (max err {max_err})")
     ms = time_ms(torch, lambda: lbk.leaf_bounds(*args))
+    host = wrapper_host_ms(torch, lambda: lbk.leaf_bounds(*args))
     plain = time_ms(torch, lambda: ref.leaf_bounds(*args), warmup=1, reps=10)
-    L, B, K = q_proj.shape
     nl, E = f.n_leaves, f.breakpoints.shape[2]
     nbytes = (4 * L * B * K + 2 * 2 * L * nl * K + L * nl + 4 * L * K * E
               + 2 * 4 * L * B * nl)
     flops = 13 * L * B * nl * K                  # LB 6 + UB 7 per (k, pair)
     bms, by = bound_ms(nbytes, flops)
-    out = dict(L=L, B=B, nl=nl, K=K, bit_identical=True, max_abs_err=max_err,
-               invalid_leaves=int((~f.leaf_valid).sum()), ms=ms,
-               plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes,
-               flops=flops)
+    return dict(L=L, B=B, nl=nl, K=K, bit_identical=True,
+                max_abs_err=max_err, ms=ms, wrapper_host_ms=host,
+                plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes,
+                flops=flops)
+
+
+def check_leaf_bounds(torch, index, queries) -> dict:
+    """The vmap round's batch (B = 100) and the auto engine's widths (B = 1
+    and 7), each bit-identical; the B = 1 times ride on the B = 100 line."""
+    q_proj = _q_proj(index, queries)
+    out = _leaf_bounds_case(torch, index, q_proj)
+    b7 = _leaf_bounds_case(torch, index, q_proj[:, :7].contiguous())
+    b1 = _leaf_bounds_case(torch, index, q_proj[:, :1].contiguous())
+    out.update(invalid_leaves=int((~index.forest.leaf_valid).sum()),
+               max_abs_err=max(out["max_abs_err"], b7["max_abs_err"],
+                               b1["max_abs_err"]),
+               b7_ms=b7["ms"], b7_bound_ms=b7["bound_ms"], b1_ms=b1["ms"],
+               b1_wrapper_host_ms=b1["wrapper_host_ms"],
+               b1_plain_ms=b1["plain_ms"], b1_bound_ms=b1["bound_ms"],
+               b1_bound_by=b1["bound_by"])
     line("leaf_bounds", **out)
     return out
 
@@ -935,6 +963,32 @@ def check_lsh_project(torch, x, a, case: str) -> dict:
     return out
 
 
+def check_encode_bins_edge_cases(torch) -> dict:
+    """encode_bins against its plain version on _edge_case_inputs (a run of
+    equal inner edges, coordinates on edges, +-inf, NaN) at Nr = 100 and
+    256, D a multiple of 4 or not, one column group or several:
+    bit-identical, NaN coded 0, +inf the last code, -inf 0."""
+    from repro_torch.kernels import encode_bins as ebk
+    from repro_torch.kernels import ref
+    cases = [(20000, 64, 100), (4099, 65, 100), (5000, 200, 256),
+             (33, 16, 100)]
+    for i, (n, D, Nr) in enumerate(cases):
+        coords, bp = _edge_case_inputs(torch, n, D, Nr, seed=70 + i)
+        got = ebk.encode_bins(coords, bp)
+        require(got.dtype == torch.int32
+                and torch.equal(got, ref.encode_bins(coords, bp)),
+                f"encode_bins edge cases n={n} D={D} Nr={Nr}: differs from "
+                f"the plain version")
+        require(bool((got[5, ::3] == 0).all()
+                     and (got[4, ::2] == Nr - 1).all()
+                     and (got[4, 1::2] == 0).all()),
+                f"encode_bins edge cases D={D} Nr={Nr}: NaN / +-inf codes")
+    out = dict(cases=[dict(n=n, D=D, Nr=Nr) for n, D, Nr in cases],
+               bit_identical=True)
+    line("encode_bins_edge_cases", **out)
+    return out
+
+
 def check_encode_bins(torch, coords, bp) -> dict:
     """The encode kernel against its plain version on coords (n, D) and
     breakpoints (D, Nr+1) of the card: bit-identical.  The library call is
@@ -954,6 +1008,7 @@ def check_encode_bins(torch, coords, bp) -> dict:
     inner = bp[:, 1:Nr].contiguous()
     coords_t = coords.T.contiguous()
     ms = time_ms(torch, lambda: ebk.encode_bins(coords, bp))
+    host = wrapper_host_ms(torch, lambda: ebk.encode_bins(coords, bp))
     plain = time_ms(torch, lambda: ref.encode_bins(coords, bp), warmup=1,
                     reps=5)
     library = time_ms(torch, lambda: torch.clamp(torch.searchsorted(
@@ -962,8 +1017,9 @@ def check_encode_bins(torch, coords, bp) -> dict:
     flops = n * D * math.ceil(math.log2(Nr))          # one compare per step
     bms, by = bound_ms(nbytes, flops)
     out = dict(n=n, D=D, Nr=Nr, bit_identical=True, max_abs_err=max_err,
-               ms=ms, plain_ms=plain, library_ms=library, bound_ms=bms,
-               bound_by=by, bytes=nbytes, flops=flops)
+               ms=ms, wrapper_host_ms=host, plain_ms=plain,
+               library_ms=library, bound_ms=bms, bound_by=by, bytes=nbytes,
+               flops=flops)
     line("encode_bins", **out)
     return out
 
@@ -1538,7 +1594,8 @@ def kernel_sass() -> dict:
     FFMA a feature and output; FFMA must be > 0) and in project_encode_pack's
     nine instances (K = 4, 8, 16 and any K on 128- and 64-row blocks, any K
     on 32-row blocks), whose projection is one FFMA a feature: FFMA > 0 and
-    no FMUL, FADD or HMMA anywhere in them."""
+    no FMUL, FADD or HMMA anywhere in them; and FFMA, FMUL and FADD in
+    leaf_bounds' four instances (K = 4, 8, 16, any), for the record."""
     kinds = {f"{'heads' if h else 'single'}_cols{c}":
              f"range_rerank_kernelILb{h}ELi{c}E"
              for h in (0, 1) for c in (2, 4, 8)}
@@ -1568,8 +1625,15 @@ def kernel_sass() -> dict:
                     for v in proj),
             f"project_encode_pack: a projection instance with FMUL, FADD or "
             f"a tensor-core op, or without FFMA, in its SASS: {pep}")
+    # leaf_bounds' sums are __fadd_rn(acc, __fmul_rn(t, t)), which cannot
+    # contract; IEEE sqrtf brings FFMAs of its own, so these counts are a
+    # record, and the bit-identity checks hold the no-FMA contract.
+    lb = sass_counts("leaf_bounds", {
+        f"K{k or 'any'}": f"leaf_bounds_kernelILi{k}E" for k in (4, 8, 16, 0)},
+        ("FFMA", "FMUL", "FADD"))
+    require(len(lb) == 4, f"leaf_bounds: not four instances: {lb}")
     out = {"range_rerank": rr, "lsh_project": lp,
-           "project_encode_pack": pep}
+           "project_encode_pack": pep, "leaf_bounds": lb}
     line("kernel_sass", **out)
     return out
 
@@ -2160,6 +2224,7 @@ def main() -> int:
     ebins = check_encode_bins(
         torch, torch.matmul(index.data, index.A),
         index.forest.breakpoints.reshape(64, 257))
+    check_encode_bins_edge_cases(torch)
     del res, vres, res_scaled
     torch.cuda.empty_cache()
     pdet = pdet_path(torch, index.data, queries)
@@ -2201,7 +2266,8 @@ def main() -> int:
          "max_abs_err": lbd["max_abs_err"],
          "ms": lbd["ms"], "plain_ms": lbd["plain_ms"],
          "bound_ms": lbd["bound_ms"], "bound_by": lbd["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "b1_ms": lbd["b1_ms"],
+         "b1_bound_ms": lbd["b1_bound_ms"], "b7_ms": lbd["b7_ms"]},
         {"name": "l2_rerank", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/l2_rerank.cu",
          "replaces": "src/repro/kernels/l2_rerank.py:29",

@@ -41,6 +41,11 @@ times:
   Bit-identical where both trees sum alike; against a tree whose sum is
   a rounded product and a rounded sum the count of unequal entries is
   printed.
+- ``encode_bins``: the main path's projections (1,000,000 x 64, the
+  index's A) with its index's breakpoints (Nr = 256); bit-identical.
+- ``leaf_bounds``: the main path's forest (L = 4, nl = 15,625, K = 16)
+  and its 100 projected queries; ``leaf_bounds_b1``: the first of them
+  alone (the auto engine's single query).  Bit-identical.
 - ``flash_f32_prefill``, ``flash_bf16_prefill``: b = 1, h = 16, sq = sk =
   32,768, dh = 128, causal (old: its one kernel; new: the wrapper's path).
 - ``flash_f32_decode``, ``flash_bf16_decode``: b = 4, h = 16, sq = 1,
@@ -328,6 +333,51 @@ def main() -> int:
         cases["project_encode_pack_d2048"] = (pep_case(torch.randn(
             (16384, 2048), device="cuda",
             generator=torch.Generator("cuda").manual_seed(40))), "count", 10)
+
+    # encode_bins and leaf_bounds: one C signature in both trees.
+    if wanted("encode_bins"):
+        eb_fn = {"old": _typed(_build_old(old_tree, "encode_bins")
+                               .encode_bins_launch, 3, "lii"),
+                 "new": _typed(_build.load("encode_bins").encode_bins_launch,
+                               3, "lii")}
+        coords = torch.matmul(index.data, index.A)
+        eb_bp = f.breakpoints.reshape(p.L * p.K, -1).contiguous()
+        eb_out = {v: torch.empty(coords.shape, dtype=torch.int32,
+                                 device="cuda") for v in ("old", "new")}
+
+        def eb_run(v):
+            code = eb_fn[v](coords.data_ptr(), eb_bp.data_ptr(),
+                            eb_out[v].data_ptr(), coords.shape[0],
+                            coords.shape[1], eb_bp.shape[1] - 1, stream)
+            assert code == 0, (v, code)
+            return eb_out[v]
+        cases["encode_bins"] = (eb_run, "equal", 10)
+    if wanted("leaf_bounds", "leaf_bounds_b1"):
+        lb_fn = {"old": _typed(_build_old(old_tree, "leaf_bounds")
+                               .leaf_bounds_launch, 7, "iiiii"),
+                 "new": _typed(_build.load("leaf_bounds").leaf_bounds_launch,
+                               7, "iiiii")}
+
+        def lb_case(q_proj):
+            Lq, Bq, Kq = q_proj.shape
+            outs = {v: (torch.empty((Lq, Bq, f.n_leaves), device="cuda"),
+                        torch.empty((Lq, Bq, f.n_leaves), device="cuda"))
+                    for v in ("old", "new")}
+
+            def run(v):
+                code = lb_fn[v](
+                    q_proj.data_ptr(), f.leaf_lo.data_ptr(),
+                    f.leaf_hi.data_ptr(), f.leaf_valid.data_ptr(),
+                    f.breakpoints.data_ptr(), outs[v][0].data_ptr(),
+                    outs[v][1].data_ptr(), Lq, Bq, f.n_leaves, Kq,
+                    f.breakpoints.shape[2], stream)
+                assert code == 0, (v, code)
+                return outs[v]
+            return run
+        q_proj = chip_smoke._q_proj(index, queries)
+        cases["leaf_bounds"] = (lb_case(q_proj), "equal", 10)
+        cases["leaf_bounds_b1"] = (lb_case(q_proj[:, :1].contiguous()),
+                                   "equal", 10)
 
     # flash_attention: the old tree's launch (one kernel before the launch
     # paths, else its prefill or decode launch) against the new wrapper.

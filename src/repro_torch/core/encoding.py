@@ -175,10 +175,12 @@ def encode(coords: torch.Tensor, breakpoints: torch.Tensor, *,
     """Encode coords (n, D) with breakpoints (D, Nr+1) -> region ids (n, D).
 
     Region b satisfies B[d, b] <= x <= B[d, b+1] (int32 in [0, Nr-1]).
-    impl: 'auto'/'xla' -> a row-wise ``torch.searchsorted``; 'pallas' -> the
-    ``encode_bins`` kernel on a CUDA tensor (its plain version, this
-    searchsorted, on a CPU one); 'pallas_interpret' -> the plain version on
-    either device.
+    impl: 'auto'/'xla' -> a row-wise ``torch.searchsorted``, which puts a
+    NaN coordinate past every edge (Nr-1), as the reference's jnp oracle
+    does; 'pallas' -> the ``encode_bins`` kernel on a CUDA tensor (its
+    plain version ``kernels.ref.encode_bins`` on a CPU one), which codes a
+    NaN 0, as the TPU kernel does; 'pallas_interpret' -> that plain version
+    on either device.
     """
     if impl in ("pallas", "pallas_interpret"):
         from repro_torch.kernels import ops

@@ -12,6 +12,7 @@ an unchanged one loads at once.  The compiler's register/shared-memory report
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -106,6 +107,16 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     build_all((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def on_device(dev):
+    """A context that makes CUDA device ``dev`` the current one, or none
+    where it is current already (the switch costs more host time than a
+    small launch)."""
+    import torch
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

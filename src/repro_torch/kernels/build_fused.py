@@ -15,7 +15,6 @@ picks between kernel and plain version by device.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -44,15 +43,6 @@ def _launcher(name: str, n_ptrs: int, n_ints: int):
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int64]
                    + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
     return fn
-
-
-def _on(dev: torch.device):
-    """A context that makes ``dev`` the current device, or none where it is
-    current already (the switch costs more host time than a small
-    launch)."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
 
 
 def _checked_dims(breakpoints: torch.Tensor, D: int, K: int,
@@ -104,7 +94,7 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
                          f"a block's shared memory")
     out = _outputs(n, K, L, proj.device)
     fn = _launcher("encode_pack", 6, 6)
-    with _on(proj.device):
+    with _build.on_device(proj.device):
         stream = torch.cuda.current_stream(proj.device).cuda_stream
         code = fn(proj.data_ptr(), breakpoints.data_ptr(),
                   *(o.data_ptr() for o in out), n, D, K, L, Nr, hi_bits,
@@ -138,7 +128,7 @@ def project_encode_pack(x: torch.Tensor, a: torch.Tensor,
     eyt = torch.empty((D, _table_width(breakpoints)), dtype=torch.float32,
                       device=x.device)
     fn = _launcher("project_encode_pack", 8, 7)
-    with _on(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), a.data_ptr(), breakpoints.data_ptr(),
                   eyt.data_ptr(), *(o.data_ptr() for o in out), n, d, D, K,

@@ -1,6 +1,7 @@
 // The encode + key-pack stage shared by encode_pack.cu and
 // project_encode_pack.cu (the TPU kernels' shared _encode_pack_tile in
-// src/repro/kernels/build_fused.py), and encode_bins.cu's search.
+// src/repro/kernels/build_fused.py); encode_bins.cu runs its tables and
+// search without the key pack.
 //
 // code[row, c] = #(inner edges bp[c, 1..Nr-1] <= x[row, c]), in [0, Nr-1]
 // (0 for a NaN, which no comparison admits, as the TPU kernel's
@@ -111,25 +112,6 @@ inline cudaError_t build_eytzinger(const float* bp, float* eyt, int D,
   return cudaGetLastError();
 }
 
-// #(edges[0 .. n_edges-1] <= x) for non-decreasing edges, n_edges >= 1:
-// searchsorted(side='right'), and so the reference's compare-accumulate
-// count.  A branch-free binary search (binary lifting): floor(log2 n_edges)
-// + 1 steps whatever x is, each a clamped load and a select.  kReadOnly
-// reads edges in device memory through the read-only path (__ldg); false
-// reads them where they are (shared memory).  encode_bins.cu's search.
-template <bool kReadOnly>
-__device__ __forceinline__ int count_le(const float* edges, int n_edges,
-                                        float x) {
-  int pos = 0;
-  for (int step = 1 << (31 - __clz(n_edges)); step > 0; step >>= 1) {
-    const int probe = pos + step;
-    const float* at = edges + min(probe, n_edges) - 1;
-    const float e = kReadOnly ? __ldg(at) : *at;
-    pos = (probe <= n_edges && e <= x) ? probe : pos;
-  }
-  return pos;
-}
-
 // Streaming (evict-first) stores: nothing rereads the outputs soon.
 __device__ __forceinline__ void store(float* p, float v) { __stcs(p, v); }
 __device__ __forceinline__ void store(int32_t* p, int32_t v) {
@@ -164,8 +146,9 @@ __device__ __forceinline__ float table_at(const float* t) {
   return kSmem ? *t : __ldg(t);
 }
 
-// code[u] of x[u] in the table that starts at t[u], for kN dims at once.
-template <bool kSmem, int kN>
+// code[u] of x[u] in the table that starts at t[u], for kN dims at once;
+// logP <= kLevels (8: Nr <= 256).
+template <bool kSmem, int kN, int kLevels = 8>
 __device__ __forceinline__ void search(const float* const (&t)[kN],
                                        const float (&x)[kN], int logP,
                                        int Nr, int (&code)[kN]) {
@@ -173,7 +156,7 @@ __device__ __forceinline__ void search(const float* const (&t)[kN],
 #pragma unroll
   for (int u = 0; u < kN; ++u) i[u] = 1;
 #pragma unroll
-  for (int s = 0; s < 8; ++s) {             // Nr <= 256: at most 8 levels
+  for (int s = 0; s < kLevels; ++s) {
     if (s < logP) {
       float e[kN];
 #pragma unroll

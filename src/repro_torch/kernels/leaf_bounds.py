@@ -10,12 +10,14 @@ bit, since the top-M leaf cut that follows is decided by exact LB ties.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("leaf_bounds")
     fn = lib.leaf_bounds_launch
@@ -60,7 +62,7 @@ def leaf_bounds(q_proj: torch.Tensor, leaf_lo: torch.Tensor,
     lb = torch.empty((L, B, nl), dtype=torch.float32, device=dev)
     ub = torch.empty((L, B, nl), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.leaf_bounds_launch(
             *(t.data_ptr() for t in tensors), lb.data_ptr(), ub.data_ptr(),

@@ -29,16 +29,12 @@ def encode_pack(proj: torch.Tensor, breakpoints: torch.Tensor, *, K: int,
     proj (n, L*K) f32, breakpoints (L*K, Nr+1) -> (proj_t (L, n, K) f32,
     codes_t (L, n, K) int32, key_hi (L, n), key_lo (L, n)): each key word is
     a uint32 value held in int64.  Codes are #(inner edges <= x), clipped
-    to [0, Nr-1], and 0 for a NaN coordinate, which no comparison admits
-    (the TPU kernel's compare-accumulate ``proj >= edge``; searchsorted
-    would put it past every edge); key words are
-    ``core.detree.interleave_keys`` per tree.
+    to [0, Nr-1], and 0 for a NaN coordinate (:func:`encode_bins`); key
+    words are ``core.detree.interleave_keys`` per tree.
     """
     from repro_torch.core.detree import interleave_keys
-    from repro_torch.core.encoding import encode
     n = proj.shape[0]
-    codes = encode(proj, breakpoints)                          # (n, L*K)
-    codes = torch.where(torch.isnan(proj), 0, codes)
+    codes = encode_bins(proj, breakpoints)                     # (n, L*K)
     proj_t = proj.reshape(n, L, K).permute(1, 0, 2).contiguous()
     codes_t = codes.reshape(n, L, K).permute(1, 0, 2).contiguous()
     key_hi, key_lo = interleave_keys(codes_t, K)
@@ -101,10 +97,14 @@ def lsh_project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def encode_bins(coords: torch.Tensor, breakpoints: torch.Tensor
                 ) -> torch.Tensor:
     """iSAX region ids, coords (n, D), breakpoints (D, Nr+1) -> (n, D)
-    int32: #(inner edges <= x), clipped to [0, Nr-1] -- the port's
-    ``core.encoding.encode``, the semantics of record."""
+    int32: #(inner edges bp[c, 1..Nr-1] <= x), clipped to [0, Nr-1], as the
+    TPU kernel's compare-accumulate ``x >= edge`` counts them: +inf gets
+    Nr-1, -inf 0, and a NaN coordinate 0, since no comparison admits it (a
+    searchsorted alone would put it past every edge, Nr-1, as the port's
+    ``core.encoding.encode`` does for 'auto'/'xla')."""
     from repro_torch.core.encoding import encode
-    return encode(coords, breakpoints)
+    codes = encode(coords, breakpoints)
+    return torch.where(torch.isnan(coords), 0, codes)
 
 
 def project_encode_pack(x: torch.Tensor, a: torch.Tensor,

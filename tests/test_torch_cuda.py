@@ -249,27 +249,46 @@ def test_wrappers_refuse_bad_inputs(cuda):
 # The vmap engine's kernels: leaf_bounds and l2_rerank
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("B", [1, 7, 37, 100])
 @pytest.mark.parametrize("nl,K,Nr", [(256, 4, 256), (300, 16, 64),
-                                     (17, 2, 16), (512, 8, 128)])
-def test_leaf_bounds_kernel_bit_identical(cuda, nl, K, Nr):
+                                     (17, 2, 16), (512, 8, 128),
+                                     (300, 3, 64), (401, 5, 256)])
+def test_leaf_bounds_kernel_bit_identical(cuda, nl, K, Nr, B):
+    """The templates (K = 4, 8, 16) and the generic instance (K = 2, 3, 5),
+    B from one lane to four lane chunks, nl not a multiple of the 128-leaf
+    tile, leaves whose upper bound is the last region, a tile whose leaves
+    are all invalid, and bounds read from an address that is not 16-byte
+    aligned: bit for bit, one launch a call."""
     from repro_torch.kernels import leaf_bounds as lbk
-    rng = np.random.default_rng(nl + K)
-    L, B = 3, 37
+    rng = np.random.default_rng(nl + K + B)
+    L = 3
     bp = torch.tensor(np.sort(rng.standard_normal((L, K, Nr + 1)) * 3.0,
                               axis=-1, kind="stable"),
                       dtype=torch.float32, device=cuda)
     lo = rng.integers(0, Nr, (L, nl, K))
     hi = np.clip(lo + rng.integers(0, 8, (L, nl, K)), 0, Nr - 1)
+    hi[:, ::3] = Nr - 1
     lo = torch.tensor(lo, dtype=torch.int16, device=cuda)
     hi = torch.tensor(hi, dtype=torch.int16, device=cuda)
-    valid = torch.tensor(rng.random((L, nl)) > 0.1, device=cuda)
+    valid = rng.random((L, nl)) > 0.1
+    valid[1, 128:256] = False                   # a whole tile (or the rest)
+    valid = torch.tensor(valid, device=cuda)
     q = torch.tensor(rng.standard_normal((L, B, K)) * 2.0,
                      dtype=torch.float32, device=cuda)
+    want = ref.leaf_bounds(q, lo, hi, valid, bp)
     before = lbk.leaf_bounds.launches
     got = ops.leaf_bounds(q, lo, hi, valid, bp)
     assert lbk.leaf_bounds.launches == before + 1
-    for g, w in zip(got, ref.leaf_bounds(q, lo, hi, valid, bp)):
+    for g, w in zip(got, want):
         assert torch.equal(g, w)                    # bit for bit, +inf too
+
+    def unaligned(t):                           # 2 bytes past an alignment
+        u = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:]
+        return u.view(t.shape).copy_(t)
+    got = ops.leaf_bounds(q, unaligned(lo), unaligned(hi), valid, bp)
+    assert lbk.leaf_bounds.launches == before + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("b,m,d", [(128, 256, 128), (1, 1000, 64),
@@ -505,11 +524,13 @@ def test_lsh_project_kernel_ragged_edges(cuda, n, d, m, dtype):
 
 @pytest.mark.parametrize("n,D,Nr", [(512, 64, 256), (700, 16, 64),
                                     (64, 4, 16), (1024, 128, 256),
-                                    (5000, 200, 256)])
+                                    (5000, 200, 256), (33, 65, 100),
+                                    (1000, 300, 256), (300, 8, 1000)])
 def test_encode_bins_kernel_bit_identical(cuda, n, D, Nr):
-    """The reference's sweep (and a panel too wide for one block, D = 200
-    at Nr = 256): codes equal the plain searchsorted bit for bit, at edges
-    and outside the outer edges too."""
+    """The reference's sweep, D not a multiple of 4 (65), several column
+    groups (D = 200, 300), n not a multiple of 32, Nr = 100 and 1,000:
+    codes equal the plain version bit for bit, on an inner edge, outside
+    the outer edges, at +-inf (the last code, -inf 0) and at NaN (0)."""
     from repro_torch.kernels import encode_bins as ebk
     gen = torch.Generator(cuda).manual_seed(n + D)
     coords = torch.randn((n, D), generator=gen, device=cuda) * 3.0
@@ -517,11 +538,15 @@ def test_encode_bins_kernel_bit_identical(cuda, n, D, Nr):
                     * 3.0, dim=1, stable=True).values
     coords[0] = bp[:, 1]                          # exactly on an inner edge
     coords[1] = bp[:, Nr // 2]
+    coords[2, ::2], coords[2, 1::2] = float("inf"), float("-inf")
+    coords[3, ::3] = float("nan")
     before = ebk.encode_bins.launches
     got = ops.encode_bins(coords, bp)
     assert ebk.encode_bins.launches == before + 1
     want = ref.encode_bins(coords, bp)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bool((got[3, ::3] == 0).all() and (got[2, ::2] == Nr - 1).all()
+                and (got[2, 1::2] == 0).all())
 
 
 def test_build_kernels_refuse_bad_inputs(cuda):
@@ -538,6 +563,8 @@ def test_build_kernels_refuse_bad_inputs(cuda):
         ebk.encode_bins(x, torch.zeros((4, 2), device=cuda))
     with pytest.raises(TypeError):
         ebk.encode_bins(x.double(), torch.zeros((4, 9), device=cuda))
+    with pytest.raises(ValueError):                 # Nr = 8,193
+        ebk.encode_bins(x, torch.zeros((4, 8194), device=cuda))
 
 
 def test_reference_builder_on_the_card_launches_both_kernels(cuda):

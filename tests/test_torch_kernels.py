@@ -163,6 +163,40 @@ def test_leaf_bounds_and_l2_rerank_match_reference():
         rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("K", [2, 3, 5, 16])
+def test_leaf_bounds_forest_edges_match_reference(K):
+    """The forest form at the edges of its contract, against the
+    reference's plain leaf bounds tree by tree and lane by lane: leaves
+    whose upper bound is the last region (hi = Nr - 1, so hi + 1 = Nr, the
+    outer edge), leaves whose lower bound is region 0, invalid leaves
+    (+inf), and a tree whose leaves are all invalid."""
+    rng = np.random.default_rng(K)
+    L, B, nl, Nr = 3, 4, 37, 64
+    bp = np.sort(rng.standard_normal((L, K, Nr + 1)).astype(np.float32) * 2,
+                 axis=-1, kind="stable")
+    lo = rng.integers(0, Nr, (L, nl, K))
+    hi = np.clip(lo + rng.integers(0, 8, (L, nl, K)), 0, Nr - 1)
+    hi[:, ::3] = Nr - 1
+    lo[:, ::5] = 0
+    valid = rng.random((L, nl)) > 0.2
+    valid[2] = False
+    q = (rng.standard_normal((L, B, K)) * 2.5).astype(np.float32)
+    args = (q, lo.astype(np.int16), hi.astype(np.int16), valid, bp)
+    lb, ub = tref.leaf_bounds(*map(torch.tensor, args))
+    assert np.isinf(lb[2].numpy()).all() and np.isinf(ub[2].numpy()).all()
+    for t in range(L):
+        for b in range(B):
+            want = jref.leaf_bounds(jnp.asarray(q[t, b]),
+                                    jnp.asarray(args[1][t]),
+                                    jnp.asarray(args[2][t]),
+                                    jnp.asarray(valid[t]), jnp.asarray(bp[t]))
+            for g, w in zip((lb[t, b], ub[t, b]), want):
+                w = np.asarray(w)
+                np.testing.assert_array_equal(np.isinf(g.numpy()),
+                                              np.isinf(w))
+                np.testing.assert_allclose(g.numpy(), w, rtol=1e-6)
+
+
 def test_ops_refuse_a_device_without_a_kernel():
     x = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -461,6 +495,54 @@ def test_encode_bins_plain_matches_reference(n, D, Nr):
     got = tops.encode_bins(torch.tensor(coords), torch.tensor(bp))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _encode_edge_cases(rng, n, D, Nr):
+    """Breakpoints (D, Nr+1) with a run of equal inner edges, and coordinates
+    (n, D) on the first, a run's and the last inner edge, on the outer
+    edges, at +-inf and NaN, and on random inner edges beside random
+    values."""
+    bp = np.sort(rng.standard_normal((D, Nr + 1)).astype(np.float32) * 2,
+                 axis=1, kind="stable")
+    mid = Nr // 2
+    bp[:, mid:mid + 3] = bp[:, mid, None]
+    x = (rng.standard_normal((n, D)) * 2).astype(np.float32)
+    x[0], x[1], x[2] = bp[:, 1], bp[:, mid], bp[:, Nr - 1]
+    x[3], x[4] = bp[:, 0], bp[:, Nr]
+    x[5, ::2], x[5, 1::2] = np.inf, -np.inf
+    x[6, ::3] = np.nan
+    x[7] = np.nan
+    rows, cols = rng.integers(8, n, size=n), rng.integers(0, D, size=n)
+    x[rows, cols] = bp[cols, rng.integers(1, Nr, size=n)]
+    return x, bp
+
+
+@pytest.mark.parametrize("n,D,Nr", [(512, 8, 100), (700, 13, 16),
+                                    (300, 4, 5), (1024, 64, 256)])
+def test_encode_bins_plain_edge_cases_match_reference_kernel(n, D, Nr):
+    """NaN, +-inf, coordinates on an inner edge, equal adjacent edges and
+    Nr that is not a power of two: the plain encode_bins equals the
+    reference's Pallas kernel (interpret mode), whose codes count
+    ``x >= edge`` -- a NaN gets 0, +inf the last code, -inf 0.  The
+    'auto'/'xla' encode keeps its searchsorted, as the reference's jnp
+    encode does (a NaN past every edge)."""
+    from repro_torch.core import encoding
+    x, bp = _encode_edge_cases(np.random.default_rng(n + D + Nr), n, D, Nr)
+    want = np.asarray(jops.encode_bins(jnp.asarray(x), jnp.asarray(bp),
+                                       interpret=True))
+    got = tops.encode_bins(torch.tensor(x), torch.tensor(bp))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tref.encode_bins(torch.tensor(x), torch.tensor(bp)).numpy(), want)
+    got = got.numpy()
+    assert (got[6, ::3] == 0).all() and (got[7] == 0).all()
+    assert (got[5, ::2] == Nr - 1).all() and (got[5, 1::2] == 0).all()
+    assert (got[1] == Nr // 2 + 2).all()         # the run counts as a whole
+    xla = encoding.encode(torch.tensor(x), torch.tensor(bp), impl="xla")
+    np.testing.assert_array_equal(
+        xla.numpy(), np.asarray(jenc.encode(jnp.asarray(x), jnp.asarray(bp))))
+    assert (xla.numpy()[7] == Nr - 1).all()
 
 
 def test_project_and_encode_take_the_four_impl_names():
